@@ -1,0 +1,81 @@
+"""Pose normalisation, projection and the frustum test (port of
+``invcompcamtrack_tpu/core/pose.py``).
+
+Same semantics as the JAX module, quirks included: ``normalize_points``
+divides by the mean squared distance ``varval`` itself, not its square
+root (reference: odometer.cpp:184-226), and ``in_frustum`` is
+border-inclusive.  All functions batch over leading dimensions.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from invcompcamtrack_torch.core import lie
+
+
+def normalize_points(X: torch.Tensor, mask: torch.Tensor | None = None):
+    """X: (..., N, 3) -> (Xn, mean (..., 3), varval (...,)) with
+    ``varval = mean_i ||X_i - mean||^2`` and ``Xn = (X - mean) / varval``.
+
+    An optional boolean ``mask`` (..., N) restricts the statistics to the
+    selected points; masked-out rows are still normalised with them.
+    """
+    if mask is None:
+        mean = torch.mean(X, dim=-2, keepdim=True)
+        centered = X - mean
+        varval = torch.mean(torch.sum(centered * centered, dim=-1), dim=-1)
+    else:
+        m = mask[..., None].to(X.dtype)
+        cnt = torch.clamp(torch.sum(m, dim=-2, keepdim=True), min=1.0)
+        mean = torch.sum(X * m, dim=-2, keepdim=True) / cnt
+        centered = X - mean
+        varval = (torch.sum(torch.sum(centered * centered, dim=-1) * m[..., 0],
+                            dim=-1) / cnt[..., 0, 0])
+    Xn = centered / varval[..., None, None]
+    return Xn, mean[..., 0, :], varval
+
+
+def _pose_with_center(R: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    t = -lie.matvec(R, c)
+    return lie.se3_log(torch.cat([R, t[..., None]], dim=-1))
+
+
+def normalize_pose(p: torch.Tensor, mean: torch.Tensor,
+                   varval: torch.Tensor) -> torch.Tensor:
+    """c = -R^T t; c' = (c - mean)/varval; t' = -R c'; p' = log([R | t'])."""
+    G = lie.se3_exp(p)
+    c = (lie.camera_center(G) - mean) / varval[..., None]
+    return _pose_with_center(G[..., :3], c)
+
+
+def unnormalize_pose(p: torch.Tensor, mean: torch.Tensor,
+                     varval: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`normalize_pose`."""
+    G = lie.se3_exp(p)
+    c = lie.camera_center(G) * varval[..., None] + mean
+    return _pose_with_center(G[..., :3], c)
+
+
+def transform_points(G: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """x_cam = R X + t.  G: (..., 3, 4), X: (..., N, 3) -> (..., N, 3)."""
+    return torch.matmul(X, G[..., :3].transpose(-1, -2)) + G[..., None, :, 3]
+
+
+def project_points(G: torch.Tensor, X: torch.Tensor, fx, fy, cx, cy,
+                   return_cam: bool = False):
+    """Pinhole projection -> (..., N, 2) pixel coords (and optionally the
+    camera-frame points)."""
+    Xc = transform_points(G, X)
+    z = Xc[..., 2]
+    uv = torch.stack([(Xc[..., 0] / z) * fx + cx,
+                      (Xc[..., 1] / z) * fy + cy], dim=-1)
+    if return_cam:
+        return uv, Xc
+    return uv
+
+
+def in_frustum(uv: torch.Tensor, swo, sho) -> torch.Tensor:
+    """Invalid iff x<0 | y<0 | x>swo | y>sho (border-inclusive)."""
+    x, y = uv[..., 0], uv[..., 1]
+    return (x >= 0) & (y >= 0) & (x <= swo) & (y <= sho)
