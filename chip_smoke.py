@@ -1,46 +1,84 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``invcompcamtrack_torch/csrc``, holds
-each against its plain PyTorch version at the main path's shapes, runs
-the batched IC-GN tracker ``track_pose_batch`` at the shape of
-``bench.py::bench_solver`` (B=256 problems x N=100 points on one
-1280x720 pair, psz 8, levels 4 -> 0, maxiter 10) and checks that it went
-through the kernels and solved the problem, then times the main path
-and every kernel beside its plain version.
+each against its plain PyTorch version at the main paths' shapes, and
+drives three paths, each with the launch counts set to 0 just before it
+and read just after:
+
+1. the batched IC-GN tracker ``track_pose_batch`` at the shape of
+   ``bench.py::bench_solver`` (B=256 problems x N=100 points on one
+   1280x720 pair, psz 8, levels 4 -> 0, maxiter 10): K1 x 5, K2 x 50;
+2. the odometry verifier through its CLI's ``run`` (S=256 hypotheses x
+   N=100 shared points on three 1280x720 frames, ``fb_frames = (1, 1)``,
+   input and result through the reference's file protocol): K1 x 10,
+   K2 x 100, K4 x 1; and ``main(argv)`` on PNG files where PIL exists;
+3. the tracker's non-fused paths: psz 4 with the window cache (K6 x 5,
+   K7 x 5) and psz 8 with ``window_cache=False`` (K6 x 5, K5 x 50).
+
+It checks that each path went through its kernels and solved its
+problem, compares the card with the port's CPU run, then times the paths
+and every kernel beside its plain version and its bound.
 
 It imports no JAX.  It exits non-zero, and prints no result, when no
 CUDA card is present, when the package is missing, or when any phase
 fails.  The last line is one JSON object naming the device.
 """
 
+import dataclasses
+import importlib.util
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 
 B, N = 256, 100
+S_WRONG = 8      # catastrophically wrong hypotheses among the S = B
 SEED = 0
+# Published peaks of one H100 SXM (NVIDIA's data sheet): device memory
+# rate and float32 rate outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
 # Tolerances (kernel vs plain version on the card, same inputs):
-# K1 performs the plain version's float operations in its order (taps
-# and gradient differences with the non-contracting _rn intrinsics), so
-# it is expected bit-exact; 1e-4 bounds ~8 ulp of intensities < 256.
+# K1, K5, K6 perform the plain version's float operations in its order
+# (taps and gradient differences with the non-contracting _rn
+# intrinsics) and K7 copies: expected bit-exact; 1e-4 bounds ~8 ulp of
+# intensities < 256.
 K1_TOL = 1e-4
+GATHER_TOL = 0.0
 # K2 sums the 64 pixels of the mean and of (gx, gy) in a warp butterfly:
 # the gap is relative to the magnitudes summed.
 K2_RTOL = 1e-5
 # K3's error image is exact without the mean, ~1 ulp of it with one.
 K3_TOL = 4e-5
+# K4 takes three sums (mean, squares, dot) per patch in a warp butterfly
+# and divides by the product of the norms where the plain version
+# normalises first: 2e-5 of sum|p_a p_b| / (n_a n_b) (<= 1).  The other
+# summation order of the mean shifts every pixel of a patch by up to
+# MEAN_EPS (2 ulp of 256), which moves a unit-normalised patch by at most
+# 8 MEAN_EPS / n: negligible for a textured patch, and the whole score
+# for a flat one, whose direction is rounding noise.  Both versions must
+# stay in [0, 1].
+K4_RTOL = 2e-5
+MEAN_EPS = 6.2e-5
 # Poses of the card's run vs the port's CPU run (plain versions): the
 # sums of H, rhs and (gx, gy) are taken in other orders; 5x the CPU
 # tests' port-vs-JAX tolerance.
 POSE_TOL = 1e-4
+# The verifier's backward chain ends on frame 0, the identity pose, where
+# float32 se3_log resolves a rotation only to sqrt(eps) = 3.5e-4 (the
+# JAX package's float32 chain has the same gap to its float64 run).
+IDENTITY_POSE_TOL = 1e-3
+# Correlations, card vs CPU: the chains' poses differ by up to POSE_TOL,
+# which moves a reprojection by up to ~0.1 px at fc ~ 1000.
+CORR_TOL = 5e-3
 
 
 def fail(msg: str) -> None:
@@ -79,8 +117,9 @@ def cuda_ms(torch, fn, reps=10, warmup=3):
 
 def device_ms(torch, fn, reps=10):
     """The card's busy time for one call (ms; every device op that the
-    profiler records, summed over ``reps`` calls / reps) and the number
-    of device ops per call."""
+    profiler records, summed over ``reps`` calls / reps), the number of
+    device ops per call, and the ms per call of the port's own kernels by
+    name (the ``icgn::`` kernels of ``csrc/``)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -92,11 +131,25 @@ def device_ms(torch, fn, reps=10):
     ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     check(len(ops) > 0, "torch.profiler recorded no device time")
     busy_us = sum(e.time_range.elapsed_us() for e in ops)
-    return busy_us / reps / 1e3, len(ops) / reps
+    own = {}
+    for e in ops:
+        if "icgn::" in e.name:
+            kernel = e.name.split("icgn::")[1].split("(")[0].split("<")[0]
+            own[kernel] = own.get(kernel, 0.0) + e.time_range.elapsed_us() / reps / 1e3
+    return busy_us / reps / 1e3, len(ops) / reps, own
+
+
+def bound(bytes_moved: float, flops: float):
+    """The least time (ms) the card could take: the larger of the bytes
+    over the memory rate and the float32 operations over their peak."""
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def make_problem():
-    """bench.py::bench_solver's scene, points and poses, from SEED."""
+    """bench.py::bench_solver's scene, points and poses, from SEED, and a
+    third frame one more step along for the verifier."""
     import torch
 
     from invcompcamtrack_torch import synthetic
@@ -112,7 +165,18 @@ def make_problem():
     img_ref = synthetic.render(scene, exp_np(np.zeros(6))).astype(np.float32)
     img_new = synthetic.render(scene, exp_np(p_gt)).astype(np.float32)
     X = np.stack([synthetic.sample_plane_points(scene, rng, N) for _ in range(B)])
-    return scene, p_gt, img_ref, img_new, X.astype(np.float32)
+    # half the first step's size: at a full-size second step the coarsest
+    # level sends some of the 256 chains into a wrong basin
+    rng2 = np.random.default_rng(SEED + 2)
+    p2 = p_gt + np.r_[rng2.normal(size=3) * 0.01, rng2.normal(size=3) * 0.005]
+    img_2 = synthetic.render(scene, exp_np(p2)).astype(np.float32)
+    return scene, p_gt, p2, img_ref, img_new, img_2, X.astype(np.float32)
+
+
+def reset(*count_dicts) -> None:
+    for counts in count_dicts:
+        for k in counts:
+            counts[k] = 0
 
 
 def main() -> None:
@@ -122,17 +186,22 @@ def main() -> None:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         sys.exit(2)
+    t_start = time.perf_counter()
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import invcompcamtrack_torch  # noqa: F401  (sets TF32 off)
     from invcompcamtrack_torch import ICGNParams, convert
+    from invcompcamtrack_torch.cli import track_nposes as cli_nposes
     from invcompcamtrack_torch.core import lie
     from invcompcamtrack_torch.core.camera import CameraPyramid
+    from invcompcamtrack_torch.device import default_device
     from invcompcamtrack_torch.image.pyramid import build_pyramid
-    from invcompcamtrack_torch.ops import _build, icgn_iter, patch_gather
+    from invcompcamtrack_torch.ops import _build, icgn_iter, ncc3, patch_gather
     from invcompcamtrack_torch.ops import window_sample as ws
+    from invcompcamtrack_torch.solver import chain
     from invcompcamtrack_torch.solver.icgn import track_pose_batch
+    from invcompcamtrack_torch.utils import io
 
-    dev = torch.device("cuda")
+    dev = default_device()
     card = gpu_line()
     print(card)
     t0 = time.perf_counter()
@@ -149,19 +218,22 @@ def main() -> None:
     cfg = ICGNParams(lv_f=4, lv_l=0, psz=8, maxiter=10, normdp_ratio=0.01,
                      donorm=True, dopatchnorm=False)
     psz, pad, win = cfg.psz, cfg.psz, cfg.window_size
-    scene, p_gt, img_ref, img_new, X = make_problem()
-    cam = CameraPyramid.create(scene.fc, scene.cc, scene.wh, cfg.num_levels, pad,
-                               device=dev)
-    pyr_ref = build_pyramid(convert.tensor_from_numpy(img_ref, dev), cfg.num_levels, pad)
-    pyr_new = build_pyramid(convert.tensor_from_numpy(img_new, dev), cfg.num_levels, pad)
-    Xd = convert.tensor_from_numpy(X, dev)
+    scene, p_gt, p2, img_ref, img_new, img_2, X = make_problem()
+    cam = CameraPyramid.create(scene.fc, scene.cc, scene.wh, cfg.num_levels, pad)
+    check(cam.fx.device.type == dev.type, "CameraPyramid.create did not default to the card")
+    pyr_ref = build_pyramid(convert.tensor_from_numpy(img_ref), cfg.num_levels, pad)
+    pyr_new = build_pyramid(convert.tensor_from_numpy(img_new), cfg.num_levels, pad)
+    pyr_2 = build_pyramid(convert.tensor_from_numpy(img_2), cfg.num_levels, pad)
+    Xd = convert.tensor_from_numpy(X)
     p0 = torch.zeros((B, 6), device=dev)
     gen = np.random.default_rng(SEED + 1)
+    M = B * N
 
-    # ---- phase 2: K1 vs its plain version, all 5 levels, 25,600 points
-    k1_err = 0.0
-    k1_in = {}
-    for s in range(cfg.num_levels):
+    def on_card(a):
+        return convert.tensor_from_numpy(np.asarray(a, np.float32), dev)
+
+    def level_uv(s):
+        """The 25,600 projections at level s, the first 8 on the border."""
         fx, fy, cx, cy, swo, sho = (float(v) for v in cam.level(s))
         uv = torch.stack([Xd[..., 0] / Xd[..., 2] * fx + cx,
                           Xd[..., 1] / Xd[..., 2] * fy + cy], -1).reshape(-1, 2)
@@ -169,8 +241,14 @@ def main() -> None:
                                [0.0, 0.3 * sho], [0.4 * swo, 0.0], [swo, 0.0],
                                [0.0, sho]], device=dev)
         uv[: len(border)] = border
-        entry = uv + convert.tensor_from_numpy(
-            gen.uniform(-2.0, 2.0, uv.shape).astype(np.float32), dev)
+        return uv
+
+    # ---- phase 2: K1 vs its plain version, all 5 levels, 25,600 points
+    k1_err = 0.0
+    k1_in = {}
+    for s in range(cfg.num_levels):
+        uv = level_uv(s)
+        entry = uv + on_card(gen.uniform(-2.0, 2.0, tuple(uv.shape)))
         origins = ws.window_origin(entry, psz, win, pad)
         got = patch_gather.gather_ref_grad_windows(pyr_ref[s], pyr_new[s].img, uv,
                                                    origins, psz, pad, win)
@@ -185,16 +263,14 @@ def main() -> None:
         if s == 0:
             k1_in = dict(level=pyr_ref[0], qimg=pyr_new[0].img, uv=uv,
                          origins=origins, out=got)
-    print(f"K1 vs plain: 5 levels x {B * N} points (8 on the border each), "
+    print(f"K1 vs plain: 5 levels x {M} points (8 on the border each), "
           f"max abs err {k1_err} (tol {K1_TOL}, windows exact)")
 
     # ---- phase 3: K2 / K3 vs plain at 25,600 points, f32 and bf16 storage
-    M = B * N
     p_img, p_dx, p_dy, qwin = k1_in["out"]
-    moved = k1_in["uv"] + convert.tensor_from_numpy(
-        gen.uniform(-4.5, 4.5, (M, 2)).astype(np.float32), dev)
+    moved = k1_in["uv"] + on_card(gen.uniform(-4.5, 4.5, (M, 2)))
     row_w, col_w, wts = ws.window_taps(moved, k1_in["origins"], psz, pad, win)
-    valid = convert.tensor_from_numpy((gen.uniform(size=M) > 0.1).astype(np.float32), dev)
+    valid = on_card(gen.uniform(size=M) > 0.1)
     taps = (row_w.contiguous(), col_w.contiguous(), wts.contiguous(), valid)
     k2_in = {}
     k2_err = k3_err = 0.0
@@ -219,23 +295,98 @@ def main() -> None:
     print(f"K2 vs plain: {M} points, f32 and bf16, max abs err {k2_err} "
           f"(tol {K2_RTOL} x sum|p_d * pdiff|); K3 max abs err {k3_err} (tol {K3_TOL})")
 
-    # ---- phase 4: the main path, counts set to 0 just before it
-    for counts in (patch_gather.launches, icgn_iter.launches):
-        for k in counts:
-            counts[k] = 0
+    # ---- phase 3b: K4-K7 vs their plain versions, 25,600 points on level
+    # 0 (border and far-outside centers included), and K5-K7 at psz 6
+    uv0 = k1_in["uv"]
+    far = torch.tensor([[-50.0, -50.0], [-50.0, 3.0], [1e9, 5.0], [7.0, -1e12],
+                        [1400.0, 800.0]], device=dev)
+    uv0 = torch.cat([uv0[:-len(far)], far])
+    img0, img1, img2 = pyr_ref[0].img, pyr_new[0].img, pyr_2[0].img
+    uv_b = uv0 + on_card(gen.uniform(-1.5, 1.5, (M, 2)))
+    uv_f = uv0 + on_card(gen.uniform(-1.5, 1.5, (M, 2)))
+    uv_b[-len(far):] = far      # flat in all three planes: the pad corner
+    uv_f[-len(far):] = far
+    k4_args = (img0, img1, img2, uv_b, uv0, uv_f, psz, pad)
+    got4 = ncc3.ncc3_scores(*k4_args)
+    want4 = ncc3.ncc3_scores_plain(*k4_args)
+    pats = [patch_gather.gather_patches_plain(im, uv, psz, pad, patch_norm=True)
+            .reshape(M, -1) for im, uv in ((img0, uv_b), (img1, uv0), (img2, uv_f))]
+    nrm = [torch.clamp(torch.linalg.vector_norm(p, dim=-1), min=1e-15) for p in pats]
+    k4_err = 0.0
+    for (a, b), g, w in zip(((0, 1), (1, 2)), got4, want4):
+        scale = (pats[a] * pats[b]).abs().sum(-1) / (nrm[a] * nrm[b])
+        tol = K4_RTOL * scale + 8.0 * MEAN_EPS * (1.0 / nrm[a] + 1.0 / nrm[b])
+        err = (g - w).abs()
+        bad = int((err > tol).sum())
+        check(bad == 0, f"K4 pair {a}{b}: {bad} points out of tolerance, "
+              f"worst {float((err - tol).max())}")
+        check(bool(torch.isfinite(g).all()) and float(g.min()) >= 0.0
+              and float(g.max()) <= 1.0 + 1e-5, f"K4 pair {a}{b}: scores outside [0, 1]")
+        textured = (nrm[a] > 1.0) & (nrm[b] > 1.0)
+        k4_err = max(k4_err, float(err[textured].max()))
+    n_flat = int(((nrm[0] < 1e-3) | (nrm[1] < 1e-3) | (nrm[2] < 1e-3)).sum())
+    check(n_flat >= 2, f"K4: only {n_flat} flat patches among the inputs")
+    check(float(got4[0][-len(far):].max()) <= 1.0, "K4: flat patches out of range")
+    print(f"K4 vs plain: {M} points x 3 planes ({n_flat} with a flat patch), max abs "
+          f"err on textured patches {k4_err} (tol {K4_RTOL} x sum|p_a p_b|/(n_a n_b) "
+          f"+ {8 * MEAN_EPS:.1e} x (1/n_a + 1/n_b))")
+
+    gather_err = {"K5": 0.0, "K6": 0.0, "K7": 0.0}
+    lvl6 = build_pyramid(convert.tensor_from_numpy(img_ref), 1, 6)[0]
+    gather_in = {}
+    for q, lvl in ((psz, pyr_ref[0]), (6, lvl6)):
+        origins_q = ws.window_origin(uv0 + on_card(gen.uniform(-2.0, 2.0, (M, 2))),
+                                     q, q + 8, q)
+        for pn in (False, True):
+            g5 = patch_gather.gather_patches(lvl.img, uv0, q, q, pn)
+            w5 = patch_gather.gather_patches_plain(lvl.img, uv0, q, q, pn)
+            gather_err["K5"] = max(gather_err["K5"], float((g5 - w5).abs().max()))
+            g6 = patch_gather.gather_patches_grad(lvl.img, lvl.dx, lvl.dy, uv0, q, q, pn)
+            w6 = patch_gather.gather_patches_grad_plain(lvl.img, lvl.dx, lvl.dy, uv0,
+                                                        q, q, pn)
+            gather_err["K6"] = max(gather_err["K6"],
+                                   *(float((a - b).abs().max()) for a, b in zip(g6, w6)))
+        g7 = patch_gather.gather_windows(lvl.img, origins_q, q + 8, q + 8)
+        w7 = patch_gather.gather_windows_plain(lvl.img, origins_q, q + 8, q + 8)
+        gather_err["K7"] = max(gather_err["K7"], float((g7 - w7).abs().max()))
+        if q == psz:
+            gather_in = dict(lvl=lvl, origins=origins_q)
+    torch.cuda.synchronize()
+    for k, err in gather_err.items():
+        check(err <= GATHER_TOL, f"{k} vs plain: max abs err {err} (expected bit-exact)")
+    print(f"K5, K6, K7 vs plain: {M} points, psz 8 and 6, with and without the patch "
+          f"mean, max abs err {gather_err} (tol {GATHER_TOL})")
+
+    # ---- phase 4: main path 1, counts set to 0 just before it
+    all_counts = (patch_gather.launches, icgn_iter.launches, ncc3.launches)
+
+    def read_counts():
+        return {"K1": patch_gather.launches["gather_ref_grad_windows"],
+                "K2": icgn_iter.launches["project"], "K3": icgn_iter.launches["pdiff"],
+                "K4": ncc3.launches["ncc3_scores"],
+                "K5": patch_gather.launches["gather_patches"],
+                "K6": patch_gather.launches["gather_patches_grad"],
+                "K7": patch_gather.launches["gather_windows"]}
+
+    def expect_counts(path, got, want):
+        print(f"{path} launches: {got}")
+        for k, n in got.items():
+            check(n == want.get(k, 0), f"{path}: {k} launched {n} times, not {want.get(k, 0)}")
+
+    reset(*all_counts)
     p_out = track_pose_batch(pyr_ref, pyr_new, Xd, p0, cam, cfg)
     torch.cuda.synchronize()
-    launches = {"K1": patch_gather.launches["gather_ref_grad_windows"],
-                "K2": icgn_iter.launches["project"], "K3": icgn_iter.launches["pdiff"]}
-    print(f"main path launches: {launches}")
-    check(launches["K1"] == cfg.num_levels, f"K1 launched {launches['K1']} times, not 5")
-    check(launches["K2"] == cfg.num_levels * cfg.maxiter,
-          f"K2 launched {launches['K2']} times, not 50")
+    launches = read_counts()
+    expect_counts("main path (track_pose_batch)", launches,
+                  {"K1": cfg.num_levels, "K2": cfg.num_levels * cfg.maxiter})
     check(bool(torch.isfinite(p_out).all()), "non-finite poses")
-    centers = lie.camera_center(lie.se3_exp(p_out))
     c_gt = lie.camera_center(lie.se3_exp(torch.tensor(p_gt, dtype=torch.float32,
                                                       device=dev)))
-    err = (centers - c_gt).norm(dim=-1)
+
+    def center_err(p):
+        return (lie.camera_center(lie.se3_exp(p)) - c_gt).norm(dim=-1)
+
+    err = center_err(p_out)
     med_err = float(err.median())
     print(f"median camera-centre error {med_err:.6f} (limit 0.05), max {float(err.max()):.6f}")
     check(med_err < 0.05, f"median camera-centre error {med_err}")
@@ -252,17 +403,173 @@ def main() -> None:
           f"(tol {POSE_TOL})")
     check(pose_err <= POSE_TOL, f"card vs CPU poses differ by {pose_err}")
 
-    # ---- phase 5: times.  "wall": median of 10 calls between CUDA
+    # ---- phase 4b: main path 2, the verifier through its CLI's run().
+    # Frame 1 (pose p_gt) is the reference frame; hypotheses: p_gt with
+    # small seeded perturbations, the last S_WRONG catastrophically wrong
+    # (on a plane a mildly wrong pose is homography-consistent).
+    S = B
+    hyp = p_gt + np.c_[gen.normal(size=(S, 3)) * 5e-4, gen.normal(size=(S, 3)) * 2e-4]
+    hyp[0] = p_gt
+    wrong = np.array([0.6, -0.5, 0.3, 0.25, -0.2, 0.15])
+    hyp[S - S_WRONG:] = p_gt + wrong * gen.choice([-1.0, 1.0], size=(S_WRONG, 6))
+    masks = gen.uniform(size=(S, N)) < 0.8
+    masks[:, :8] = True
+    pt3d = X[0].astype(np.float64)
+    fxy, cxy = np.asarray(scene.fc), np.asarray(scene.cc)
+    G1 = lie.se3_exp(torch.tensor(p_gt, dtype=torch.float64)).numpy()
+    Xc = pt3d @ G1[:, :3].T + G1[:, 3]
+    pt2d = Xc[:, :2] / Xc[:, 2:] * fxy + cxy
+    frames = [img_ref, img_new, img_2]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        names = [str(tmp / f"frame{i}.png") for i in range(3)]
+        io.write_nposes_input(tmp / "in.txt", io.NPosesInput(
+            params=dict(lv_f=cfg.lv_f, lv_l=cfg.lv_l, psz=cfg.psz, maxiter=cfg.maxiter,
+                        normdp_ratio=cfg.normdp_ratio, donorm=1, dopatchnorm=0,
+                        maxpttrack=N, verbosity=0),
+            fc=fxy, cc=cxy, wh=np.asarray(scene.wh), fb_frames=(1, 1), filenames=names,
+            pt2d=pt2d, pt3d=pt3d, poses=hyp,
+            inlier_ids=[np.flatnonzero(m) + 1 for m in masks]))
+        data = io.read_nposes_input(tmp / "in.txt")
+        check(data.poses.shape == (S, 6) and len(data.inlier_ids) == S
+              and data.fb_frames == (1, 1), "the verifier's input did not read back")
+        reset(*all_counts)
+        tracks, corr_rows, res = cli_nposes.run(data, frames)   # on the card
+        torch.cuda.synchronize()
+        v_launches = read_counts()
+        io.write_nposes_result(tmp / "out.txt", tracks, corr_rows)
+        tracks_f, corr_f = io.read_nposes_result(tmp / "out.txt", num_images=3)
+
+        # main(argv) itself needs an image decoder for its PNG files
+        have_pil = importlib.util.find_spec("PIL") is not None
+        if have_pil:
+            import PIL
+
+            from invcompcamtrack_torch.utils import image
+
+            for name, im in zip(names, frames):
+                image.save_gray(name, im)
+            rc = cli_nposes.main([str(tmp / "in.txt"), str(tmp / "out_main.txt")])
+            check(rc == 0, f"cli.track_nposes.main returned {rc}")
+            tracks_m, corr_m = io.read_nposes_result(tmp / "out_main.txt", num_images=3)
+            mean_m = np.array([c.mean() for c in corr_m])
+            check(tracks_m.shape == (S, 3, 6) and bool(np.isfinite(tracks_m).all()),
+                  "main(argv): malformed result file")
+            check(mean_m[:S - S_WRONG].min() > 0.8
+                  and mean_m[:S - S_WRONG].min() > mean_m[S - S_WRONG:].max(),
+                  "main(argv) on PNG files: a wrong hypothesis verified")
+            print(f"verifier main(argv) on PNG files (PIL {PIL.__version__}): near-true "
+                  f"mean corr >= {mean_m[:S - S_WRONG].min():.4f}, wrong <= "
+                  f"{mean_m[S - S_WRONG:].max():.4f}")
+        else:
+            print("verifier main(argv): PIL is not installed here; run() was driven "
+                  "with the rendered arrays instead")
+    expect_counts("verifier (cli.track_nposes.run)", v_launches,
+                  {"K1": 2 * cfg.num_levels, "K2": 2 * cfg.num_levels * cfg.maxiter,
+                   "K4": 1})
+    check(tuple(res.pose_tracks.shape) == (S, 3, 6)
+          and bool(torch.isfinite(res.pose_tracks).all()), "verifier: bad pose_tracks")
+    check(tracks_f.shape == (S, 3, 6) and [len(c) for c in corr_f] == list(masks.sum(1)),
+          "verifier: the result file did not read back")
+    check(float(np.abs(tracks_f - tracks).max()) < 1e-6, "verifier: result file poses")
+    mean_corr = res.mean_corr.cpu().numpy()
+    near, bad_h = mean_corr[:S - S_WRONG], mean_corr[S - S_WRONG:]
+    print(f"verifier: near-true mean corr in [{near.min():.4f}, {near.max():.4f}], "
+          f"wrong in [{bad_h.min():.4f}, {bad_h.max():.4f}]")
+    check(near.min() > 0.8, f"verifier: a near-true hypothesis scored {near.min()}")
+    check(near.min() > bad_h.max(), "verifier: a wrong hypothesis beat a near-true one")
+    best, best_score = chain.select_best(res, torch.ones(S, dtype=torch.bool, device=dev))
+    check(int(best) < S - S_WRONG, f"select_best picked wrong hypothesis {int(best)}")
+    c2 = lie.camera_center(lie.se3_exp(torch.tensor(p2, dtype=torch.float32, device=dev)))
+    fwd = (lie.camera_center(lie.se3_exp(res.pose_tracks[:S - S_WRONG, 2])) - c2).norm(dim=-1)
+    back = lie.camera_center(lie.se3_exp(res.pose_tracks[:S - S_WRONG, 0])).norm(dim=-1)
+    print(f"verifier chains: median camera-centre error fwd {float(fwd.median()):.6f}, "
+          f"back {float(back.median()):.6f} (limit 0.05)")
+    check(float(fwd.median()) < 0.05 and float(back.median()) < 0.05,
+          "verifier: a chain did not reach its frame")
+    # card vs the port's CPU run of the first 16 hypotheses
+    data16 = io.NPosesInput(**{**data.__dict__, "poses": data.poses[:n_ref],
+                               "inlier_ids": data.inlier_ids[:n_ref]})
+    tracks_c, _, res_c = cli_nposes.run(data16, frames, device="cpu")
+    v_pose_err = float(np.abs(tracks[:n_ref, 1:] - tracks_c[:, 1:]).max())
+    v_back_err = float(np.abs(tracks[:n_ref, 0] - tracks_c[:, 0]).max())
+    v_corr_err = float((res.correlations[:n_ref].cpu() - res_c.correlations).abs().max())
+    print(f"verifier card vs CPU, first {n_ref} hypotheses: poses {v_pose_err} (tol "
+          f"{POSE_TOL}), backward-chain poses next to the identity {v_back_err} (tol "
+          f"{IDENTITY_POSE_TOL}), correlations {v_corr_err} (tol {CORR_TOL})")
+    check(v_pose_err <= POSE_TOL, f"verifier card vs CPU poses differ by {v_pose_err}")
+    check(v_back_err <= IDENTITY_POSE_TOL,
+          f"verifier card vs CPU backward-chain poses differ by {v_back_err}")
+    check(v_corr_err <= CORR_TOL, f"verifier card vs CPU correlations differ by {v_corr_err}")
+    check(bool(((res.correlations[:n_ref].cpu() == -1) == (res_c.correlations == -1)).all()),
+          "verifier card vs CPU: the -1 entries differ")
+
+    # ---- phase 4c: main path 3, the non-fused tracker at B=256 x N=100
+    nf_launches, nf_med, nf_pose_err = {}, {}, {}
+    nf_cases = {
+        "psz4": (ICGNParams(lv_f=4, lv_l=0, psz=4, maxiter=10, normdp_ratio=0.01),
+                 {"K6": 5, "K7": 5}),
+        "psz8_nocache": (ICGNParams(lv_f=4, lv_l=0, psz=8, maxiter=10, normdp_ratio=0.01,
+                                    window_cache=False), {"K6": 5, "K5": 50}),
+    }
+    nf_calls = {}
+    for name, (c, want) in nf_cases.items():
+        cam_c = CameraPyramid.create(scene.fc, scene.cc, scene.wh, c.num_levels, c.psz)
+        pr = build_pyramid(convert.tensor_from_numpy(img_ref), c.num_levels, c.psz)
+        pn_ = build_pyramid(convert.tensor_from_numpy(img_new), c.num_levels, c.psz)
+        reset(*all_counts)
+        p_nf = track_pose_batch(pr, pn_, Xd, p0, cam_c, c)
+        torch.cuda.synchronize()
+        nf_launches[name] = read_counts()
+        expect_counts(f"non-fused tracker ({name})", nf_launches[name], want)
+        check(bool(torch.isfinite(p_nf).all()), f"{name}: non-finite poses")
+        nf_med[name] = float(center_err(p_nf).median())
+        check(nf_med[name] < 0.05, f"{name}: median camera-centre error {nf_med[name]}")
+        # card vs CPU on 16 problems.  A lane freezes when its step falls
+        # under normdp_ratio of its first one, and a last-bit difference
+        # can flip that decision and leave the two runs one step (~1e-4)
+        # apart; the checked comparison therefore runs every iteration
+        # (normdp_ratio 0), and the gap with the freeze is printed beside it
+        cpu_args = (build_pyramid(torch.from_numpy(img_ref), c.num_levels, c.psz),
+                    build_pyramid(torch.from_numpy(img_new), c.num_levels, c.psz),
+                    torch.from_numpy(X[:n_ref]), torch.zeros((n_ref, 6)), cam_c.to("cpu"))
+        c0 = dataclasses.replace(c, normdp_ratio=0.0)
+        p_card0 = track_pose_batch(pr, pn_, Xd[:n_ref], p0[:n_ref], cam_c, c0)
+        nf_pose_err[name] = float((p_card0.cpu() - track_pose_batch(*cpu_args, c0)
+                                   ).abs().max())
+        freeze_gap = float((p_nf[:n_ref].cpu() - track_pose_batch(*cpu_args, c)).abs().max())
+        print(f"non-fused tracker ({name}): median camera-centre error "
+              f"{nf_med[name]:.6f} (limit 0.05); card vs CPU, first {n_ref} poses, every "
+              f"iteration run: {nf_pose_err[name]} (tol {POSE_TOL}); with the freeze: "
+              f"{freeze_gap}")
+        check(nf_pose_err[name] <= POSE_TOL, f"{name}: card vs CPU poses differ")
+        nf_calls[name] = (lambda pr=pr, pn_=pn_, cam_c=cam_c, c=c:
+                          track_pose_batch(pr, pn_, Xd, p0, cam_c, c))
+
+    # ---- phase 5: times.  "wall": median of the calls between CUDA
     # events, which for these small, host-launched calls is mostly the
     # host's launch time; "device": the card's own kernel time per call
-    # (torch.profiler, sum over every device op of 10 calls / 10).
+    # (torch.profiler, sum over every device op of the calls / their count).
     def main_call():
         return track_pose_batch(pyr_ref, pyr_new, Xd, p0, cam, cfg)
 
     main_ms = cuda_ms(torch, main_call)
-    main_dev_ms, main_ops = device_ms(torch, main_call, reps=1)
+    main_dev_ms, main_ops, main_own = device_ms(torch, main_call, reps=1)
+    pyrs_v = [pyr_ref, pyr_new, pyr_2]
+    poses_v = convert.tensor_from_numpy(hyp, dev, torch.float32)
+    pt3d_v = convert.tensor_from_numpy(pt3d, dev, torch.float32)
+    masks_v = convert.tensor_from_numpy(masks, dev)
+
+    def verifier_call():
+        return chain.track_nposes(pyrs_v, poses_v, pt3d_v, masks_v, cam, cfg, (1, 1))
+
+    ver_ms = cuda_ms(torch, verifier_call, reps=5, warmup=1)
+    ver_dev_ms, ver_ops, ver_own = device_ms(torch, verifier_call, reps=1)
+    nf_ms = {k: cuda_ms(torch, f, reps=3, warmup=1) for k, f in nf_calls.items()}
+
     k1_args = (k1_in["level"], k1_in["qimg"], k1_in["uv"], k1_in["origins"], psz, pad, win)
     f32, b16 = k2_in[torch.float32], k2_in[torch.bfloat16]
+    g_lvl, g_or = gather_in["lvl"], gather_in["origins"]
     pairs = {
         "K1": (lambda: patch_gather.gather_ref_grad_windows(*k1_args),
                lambda: patch_gather.gather_ref_grad_windows_plain(*k1_args)),
@@ -272,39 +579,143 @@ def main() -> None:
                     lambda: icgn_iter.fused_resample_project_plain(*b16, *taps)),
         "K3": (lambda: icgn_iter.fused_resample_pdiff(*f32[:2], *taps),
                lambda: icgn_iter.fused_resample_pdiff_plain(*f32[:2], *taps)),
+        "K4": (lambda: ncc3.ncc3_scores(*k4_args),
+               lambda: ncc3.ncc3_scores_plain(*k4_args)),
+        "K5": (lambda: patch_gather.gather_patches(g_lvl.img, uv0, psz, pad),
+               lambda: patch_gather.gather_patches_plain(g_lvl.img, uv0, psz, pad)),
+        "K6": (lambda: patch_gather.gather_patches_grad(g_lvl.img, g_lvl.dx, g_lvl.dy,
+                                                        uv0, psz, pad),
+               lambda: patch_gather.gather_patches_grad_plain(g_lvl.img, g_lvl.dx,
+                                                              g_lvl.dy, uv0, psz, pad)),
+        "K7": (lambda: patch_gather.gather_windows(g_lvl.img, g_or, win, win),
+               lambda: patch_gather.gather_windows_plain(g_lvl.img, g_or, win, win)),
     }
-    times = {k: {"ms": device_ms(torch, kern)[0], "plain_ms": device_ms(torch, plain)[0],
-                 "wall_ms": cuda_ms(torch, kern), "plain_wall_ms": cuda_ms(torch, plain)}
-             for k, (kern, plain) in pairs.items()}
+    # "ms": the kernel's own time; "wrapper_ms": every device op of one
+    # wrapper call (the kernel and the torch ops that prepare its indices
+    # and weights); "plain_ms": every device op of the plain version
+    times = {}
+    for k, (kern, plain) in pairs.items():
+        wrapper_ms, _, own = device_ms(torch, kern, reps=5)
+        check(len(own) == 1, f"{k}: expected one kernel of csrc/ per call, saw {own}")
+        times[k] = {"ms": sum(own.values()), "wrapper_ms": wrapper_ms,
+                    "plain_ms": device_ms(torch, plain, reps=5)[0],
+                    "wall_ms": cuda_ms(torch, kern, reps=5, warmup=1),
+                    "plain_wall_ms": cuda_ms(torch, plain, reps=5, warmup=1)}
+
+    # one PyTorch call that computes K5's function: grid_sample over the
+    # per-pixel sample positions (built outside the timed call; its taps
+    # round differently, so it is a yardstick, not a reference)
+    import torch.nn.functional as F
+
+    Hp, Wp = g_lvl.img.shape
+    ar = torch.arange(psz, device=dev, dtype=torch.float32) - psz // 2 + pad
+    gx = (uv0[:, None, None, 0] + ar[None, None, :]).expand(M, psz, psz)
+    gy = (uv0[:, None, None, 1] + ar[None, :, None]).expand(M, psz, psz)
+    grid = torch.stack([gx / (Wp - 1) * 2 - 1, gy / (Hp - 1) * 2 - 1], -1)
+    grid = grid.reshape(1, M * psz, psz, 2).contiguous()
+    plane4 = g_lvl.img[None, None]
+
+    def k5_library():
+        return F.grid_sample(plane4, grid, mode="bilinear", padding_mode="border",
+                             align_corners=True)
+
+    # (the reference's ceil(x + 1e-5), taken in float32, puts a center on
+    # or within 1e-5 of an integer one pixel off; grid_sample does not:
+    # such centers are left out of this check)
+    frac = uv0 - torch.floor(uv0)
+    plain_at = ((frac > 1e-4) & (frac < 1.0 - 1e-4)).all(-1)
+    plain_at[:8] = False
+    plain_at[-len(far):] = False
+    lib_diff = float((k5_library().reshape(M, psz, psz)
+                      - patch_gather.gather_patches_plain(g_lvl.img, uv0, psz, pad)
+                      )[plain_at].abs().max())
+    check(lib_diff < 0.05, f"grid_sample is not K5's function: differs by {lib_diff}")
+    library_ms = {"K5": device_ms(torch, k5_library, reps=5)[0]}
+
+    # bounds from this run's inputs: each input read once, each output
+    # written once (float32 = 4 bytes), and the float32 operations
+    plane_b = Hp * Wp * 4
+    npx = psz * psz
+    bounds = {
+        "K1": bound(2 * plane_b + M * 16 + M * (3 * npx + win * win) * 4,
+                    M * (3 * npx * 7 + 2 * (psz + 1) ** 2)),
+        "K2": bound(M * (win * win + 3 * npx) * 4 + M * 28 + M * 8, M * npx * 13),
+        "K2_bf16": bound(M * (win * win + 3 * npx) * 2 + M * 28 + M * 8, M * npx * 13),
+        "K3": bound(M * (win * win + npx) * 4 + M * 28 + M * npx * 4, M * npx * 9),
+        "K4": bound(3 * plane_b + M * 24 + M * 8, M * (3 * npx * 11 + 4 * npx)),
+        "K5": bound(plane_b + M * 8 + M * npx * 4, M * npx * 7),
+        "K6": bound(plane_b + M * 8 + M * 3 * npx * 4,
+                    M * (3 * npx * 7 + 2 * (psz + 1) ** 2)),
+        "K7": bound(plane_b + M * 8 + M * win * win * 4, 0),
+    }
+
     print(f"[{card}] main path B={B} N={N} 1280x720: wall {main_ms:.3f} ms/call "
           f"(CUDA events, median of 10) = {B / main_ms * 1e3:.1f} pairs/s; device busy "
           f"{main_dev_ms:.3f} ms/call in {main_ops:.0f} device ops "
           f"({main_dev_ms / main_ms:.1%} of the wall time)")
+    print(f"[{card}] verifier S={S} N={N} 3 x 1280x720, fb (1, 1): wall {ver_ms:.3f} "
+          f"ms/call (CUDA events, median of 5) = {S / ver_ms * 1e3:.1f} hypotheses/s; "
+          f"device busy {ver_dev_ms:.3f} ms/call in {ver_ops:.0f} device ops "
+          f"({ver_dev_ms / ver_ms:.1%} of the wall time)")
+    for path, own in (("main path", main_own), ("verifier", ver_own)):
+        print(f"[{card}] {path}: the port's kernels, device ms per call: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in sorted(own.items())))
+    for k, t in nf_ms.items():
+        print(f"[{card}] non-fused tracker {k} B={B} N={N}: wall {t:.3f} ms/call "
+              f"(CUDA events, median of 3) = {B / t * 1e3:.1f} pairs/s")
     for k, t in times.items():
-        print(f"[{card}] {k} at {M} points: device {t['ms']:.4f} ms (plain "
-              f"{t['plain_ms']:.4f} ms); wall {t['wall_ms']:.4f} ms (plain "
-              f"{t['plain_wall_ms']:.4f} ms)")
+        b_ms, b_by = bounds[k]
+        lib = library_ms.get(k)
+        print(f"[{card}] {k} at {M} points: kernel {t['ms']:.4f} ms, wrapper's device ops "
+              f"{t['wrapper_ms']:.4f} ms (plain "
+              f"{t['plain_ms']:.4f} ms; bound {b_ms:.4f} ms by {b_by}; library "
+              f"{'none' if lib is None else f'{lib:.4f} ms'}); wall {t['wall_ms']:.4f} ms "
+              f"(plain {t['plain_wall_ms']:.4f} ms)")
 
     def entry(name, source, replaces, launches_n, err_, key):
+        b_ms, b_by = bounds[key]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches_n, "max_abs_err": err_, "max_abs_diff": err_,
-                **times[key]}
+                "launches": launches_n, "max_abs_err": err_, **times[key],
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms.get(key)}
 
+    tpu = "invcompcamtrack_tpu/ops/"
+    src = "invcompcamtrack_torch/csrc/"
     kernels = [
-        entry("K1 gather_ref_grad_windows", "invcompcamtrack_torch/csrc/patch_gather.cu",
-              "invcompcamtrack_tpu/ops/patch_pallas.py:413", launches["K1"], k1_err, "K1"),
-        entry("K2 fused_resample_project", "invcompcamtrack_torch/csrc/icgn_iter.cu",
-              "invcompcamtrack_tpu/ops/icgn_iter_pallas.py:172", launches["K2"], k2_err, "K2"),
+        entry("K1 gather_ref_grad_windows", src + "patch_gather.cu",
+              tpu + "patch_pallas.py:413", launches["K1"], k1_err, "K1"),
+        entry("K2 fused_resample_project", src + "icgn_iter.cu",
+              tpu + "icgn_iter_pallas.py:172", launches["K2"], k2_err, "K2"),
+        entry("K4 ncc3_scores", src + "ncc3.cu", tpu + "ncc_pallas.py:96",
+              v_launches["K4"], k4_err, "K4"),
+        entry("K5 gather_patches", src + "patch_gather.cu", tpu + "patch_pallas.py:257",
+              nf_launches["psz8_nocache"]["K5"], gather_err["K5"], "K5"),
+        entry("K6 gather_patches_grad", src + "patch_gather.cu",
+              tpu + "patch_pallas.py:316", nf_launches["psz4"]["K6"], gather_err["K6"],
+              "K6"),
+        entry("K7 gather_windows", src + "patch_gather.cu", tpu + "patch_pallas.py:503",
+              nf_launches["psz4"]["K7"], gather_err["K7"], "K7"),
     ]
-    # K3 has no caller on the main path (nor in the JAX package): it is
+    # K3 has no caller on the main paths (nor in the JAX package): it is
     # held against its plain version above and reported on its own line
-    off_path = [entry("K3 fused_resample_pdiff", "invcompcamtrack_torch/csrc/icgn_iter.cu",
-                      "invcompcamtrack_tpu/ops/icgn_iter_pallas.py:132", launches["K3"],
-                      k3_err, "K3")]
+    off_path = [entry("K3 fused_resample_pdiff", src + "icgn_iter.cu",
+                      tpu + "icgn_iter_pallas.py:132", launches["K3"], k3_err, "K3")]
+    total_s = time.perf_counter() - t_start
     print(json.dumps({"main_path": {
         "card": card, "pairs_per_s": B / main_ms * 1e3, "ms_per_call": main_ms,
         "device_busy_ms_per_call": main_dev_ms, "device_ops_per_call": main_ops,
-        "median_center_err": med_err, "cpu_pose_err": pose_err, "build_s": build_s}}))
+        "kernel_ms_per_call": main_own, "median_center_err": med_err, "cpu_pose_err": pose_err, "build_s": build_s,
+        "seconds": total_s}}))
+    print(json.dumps({"verifier": {
+        "card": card, "hypotheses_per_s": S / ver_ms * 1e3, "ms_per_call": ver_ms,
+        "device_busy_ms_per_call": ver_dev_ms, "device_ops_per_call": ver_ops,
+        "kernel_ms_per_call": ver_own, "launches": v_launches, "cpu_pose_err": v_pose_err, "cpu_back_pose_err": v_back_err,
+        "cpu_corr_err": v_corr_err,
+        "near_true_min_corr": float(near.min()), "wrong_max_corr": float(bad_h.max()),
+        "main_argv_on_png": have_pil}}))
+    print(json.dumps({"non_fused": {
+        k: {"launches": nf_launches[k], "ms_per_call": nf_ms[k],
+            "pairs_per_s": B / nf_ms[k] * 1e3, "median_center_err": nf_med[k],
+            "cpu_pose_err": nf_pose_err[k]} for k in nf_cases}}))
     print(json.dumps({"kernels_off_main_path": off_path}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -12,17 +12,21 @@ Precision: the JAX package contracts at ``Precision.HIGHEST``.  The
 port therefore keeps TF32 off for float32 matrix products and
 convolutions on the card; importing the package sets both flags.
 
-This package imports ``torch`` and never ``jax``.  It reuses, and
-re-exports, the JAX package's jax-free modules: ``ICGNParams`` from
-``config.py`` and the scene generator ``vo/synthetic.py``.
+This package imports ``torch`` and never ``jax``, and nothing of the JAX
+package: ``config.py``, ``vo/synthetic.py``, ``utils/io.py`` and
+``utils/image.py`` are its own copies of the JAX package's jax-free
+modules.  ``ICGNParams`` and ``synthetic`` are re-exported here.
+
+Entry points run on the card unless the caller passes ``device="cpu"``
+(``device.py``).
 """
 
 import torch
 
-from invcompcamtrack_tpu.config import ICGNParams  # noqa: F401
-from invcompcamtrack_tpu.vo import synthetic  # noqa: F401
+from invcompcamtrack_torch.config import ICGNParams  # noqa: F401
+from invcompcamtrack_torch.vo import synthetic  # noqa: F401
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

@@ -1,43 +1,76 @@
 """Carry the tracker's state from the JAX package (or plain numpy) into
 the port.
 
-The tracker has no weights: its state is the two pyramids, the camera,
-the world points and the poses.  These helpers take them as numpy
-arrays, or anything ``numpy.asarray`` accepts (a JAX array included,
-without this module importing JAX), and return the port's tensors on
-the device asked for.  The tests feed both packages through them.
+The tracker has no weights: its state is the pyramids, the camera, the
+world points and the poses.  These helpers take them as numpy arrays, or
+anything ``numpy.asarray`` accepts (a JAX array included, without this
+module importing JAX), and return the port's tensors on one device: the
+card, unless the caller passes ``device="cpu"``.  The tests feed both
+packages through them.
 """
 
 from __future__ import annotations
 
-from typing import Iterable
+from typing import Iterable, Sequence
 
 import numpy as np
 import torch
 
 from invcompcamtrack_torch.core.camera import CameraPyramid
-from invcompcamtrack_torch.image.pyramid import Pyramid, PyramidLevel
+from invcompcamtrack_torch.device import resolve
+from invcompcamtrack_torch.image.pyramid import Pyramid, PyramidLevel, build_pyramid
 
 
-def tensor_from_numpy(a, device: torch.device | str = "cpu",
+def tensor_from_numpy(a, device: torch.device | str | None = None,
                       dtype: torch.dtype | None = None) -> torch.Tensor:
     """Copy an array to a tensor (dtype kept unless one is given)."""
     t = torch.from_numpy(np.array(a, copy=True))
-    return t.to(device=device, dtype=dtype) if dtype is not None else t.to(device)
+    return t.to(device=resolve(device), dtype=dtype)
 
 
-def pyramid_from_numpy(levels: Iterable, device: torch.device | str = "cpu",
+def pyramid_from_numpy(levels: Iterable, device: torch.device | str | None = None,
                        dtype: torch.dtype = torch.float32) -> Pyramid:
     """A sequence of (img, dx, dy) padded planes per level -> Pyramid."""
+    device = resolve(device)
     return tuple(PyramidLevel(*(tensor_from_numpy(a, device, dtype) for a in lvl))
                  for lvl in levels)
 
 
-def camera_from_numpy(cam, device: torch.device | str = "cpu") -> CameraPyramid:
+def camera_from_numpy(cam, device: torch.device | str | None = None) -> CameraPyramid:
     """Any object with (L,) fields fx, fy, cx, cy, swo, sho and an int
     ``padding`` (such as the JAX package's CameraPyramid) ->
     the port's CameraPyramid, float32."""
+    device = resolve(device)
     return CameraPyramid(
         **{k: tensor_from_numpy(getattr(cam, k), device, torch.float32)
            for k in ("fx", "fy", "cx", "cy", "swo", "sho")},
         padding=int(cam.padding))
+
+
+def nposes_from_numpy(poses, pt3d, inlier_masks, images: Sequence,
+                      num_levels: int | None = None, padding: int | None = None,
+                      device: torch.device | str | None = None):
+    """The verifier's inputs (``solver/chain.py::track_nposes``) on one
+    device.
+
+    poses (S, 6), pt3d (N, 3), inlier_masks (S, N) bool.  ``images``
+    holds one entry per frame: either a 2-D image, from which the pyramid
+    is built here (``num_levels`` and ``padding`` are then required), or
+    a sequence of per-level (img, dx, dy) padded planes, carried over as
+    they are.  Returns (pyramids, poses, pt3d, inlier_masks): a list of
+    Pyramids, two float32 tensors and a bool tensor.
+    """
+    device = resolve(device)
+    pyramids = []
+    for im in images:
+        if getattr(im, "ndim", None) == 2:
+            if num_levels is None or padding is None:
+                raise ValueError("nposes_from_numpy: 2-D images need num_levels "
+                                 "and padding to build their pyramids")
+            pyramids.append(build_pyramid(
+                tensor_from_numpy(im, device, torch.float32), num_levels, padding))
+        else:
+            pyramids.append(pyramid_from_numpy(im, device))
+    masks = tensor_from_numpy(np.asarray(inlier_masks, bool), device)
+    return (pyramids, tensor_from_numpy(poses, device, torch.float32),
+            tensor_from_numpy(pt3d, device, torch.float32), masks)

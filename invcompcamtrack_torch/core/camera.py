@@ -13,6 +13,8 @@ import dataclasses
 
 import torch
 
+from invcompcamtrack_torch.device import resolve
+
 
 @dataclasses.dataclass(frozen=True)
 class CameraPyramid:
@@ -28,8 +30,10 @@ class CameraPyramid:
 
     @classmethod
     def create(cls, fc, cc, wh, num_levels: int, padding: int,
-               device: torch.device | str = "cpu") -> "CameraPyramid":
-        """fc=(fx,fy), cc=(cx,cy), wh=(W,H) at full resolution."""
+               device: torch.device | str | None = None) -> "CameraPyramid":
+        """fc=(fx,fy), cc=(cx,cy), wh=(W,H) at full resolution; on the
+        card unless ``device`` says otherwise."""
+        device = resolve(device)
         scale = 0.5 ** torch.arange(num_levels, dtype=torch.float32,
                                     device=device)
 

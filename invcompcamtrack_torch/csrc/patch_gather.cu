@@ -1,16 +1,22 @@
-// K1: the tracker's per-scale dual gather.
+// K1, K5, K6, K7: the tracker's gathers.
 //
-// Replaces invcompcamtrack_tpu/ops/patch_pallas.py::gather_ref_grad_and_windows
-// (body _kernel_grad_window).  Per point it produces the 8x8 reference
-// patch, its two gradient patches and the 16x16 integer-origin window of
-// the query image that the GN iterations resample from (K2).
+// K1 replaces invcompcamtrack_tpu/ops/patch_pallas.py::gather_ref_grad_and_windows
+// (body _kernel_grad_window): per point the 8x8 reference patch, its two
+// gradient patches and the 16x16 integer-origin window of the query image
+// that the GN iterations resample from (K2).
+// K5 replaces ::gather_patches (body _kernel_single): the psz x psz
+// bilinear patch.
+// K6 replaces ::gather_patches_grad (body _kernel_grad_fused): K1 without
+// the window, for any even psz <= 16.
+// K7 replaces ::gather_windows (body _kernel_windows): the (wh, ww) window
+// at an integer origin.
 //
-// Inputs (prepared by ops/patch_gather.py, with the plain version's code):
-//   rimg, qimg   padded level planes (Hp, Wp) f32
-//   idx  (M, 4)  int32: patch-support row/col and window row/col, each
+// Inputs (prepared by ops/patch_gather.py, with the plain versions' code):
+//   planes       padded level planes (Hp, Wp) f32
+//   idx          int32 support (and window) row/col per point, each
 //                already moved inside the plane (dynamic_slice rule)
 //   wts  (M, 4)  f32: the 4 constant bilinear weights
-// Outputs: p_img, p_dx, p_dy (M, 64) and qwin (M, 256), all f32.
+// Outputs: patches (M, psz*psz), windows (M, wh*ww), all f32.
 //
 // The gradients are not gathered from the pyramid's dx/dy planes but
 // computed here from a 1-px halo around the support: those planes are
@@ -19,23 +25,80 @@
 // image window is the same subtraction of the same floats (the masks of
 // _kernel_grad_window).  One plane read per point instead of three.
 //
-// What bounds it on an H100: bytes written, 448 floats per point (46 MB
-// at 25,600 points); the reads are ~380 floats per point from a level
-// plane that stays in the 50 MB L2 (the padded 1296x736 level 0 is
-// 3.8 MB).  Design: one warp per point, eight points per block.  The
-// warp stages the 11x11 halo in shared memory, then each lane computes
-// two of the 64 output pixels (12 halo reads each) and writes them with
-// coalesced stores; the 16x16 window is copied row pairs per
+// What bounds them on an H100: bytes written.  K1 writes 448 floats per
+// point (46 MB at 25,600 points), K6 3 psz^2, K5 psz^2, K7 wh*ww; the
+// reads come from a level plane that stays in the 50 MB L2 (the padded
+// 1296x736 level 0 is 3.8 MB).  Design: one warp per point, eight points
+// per block.  The warp stages the support (K5) or its halo (K1, K6) in
+// shared memory, then each lane computes every 32nd output pixel and
+// writes it with coalesced stores; windows are copied 32 floats per
 // instruction.  No per-point VMEM plan, lane alignment or two-phase
-// plane copies of the TPU kernel have a counterpart here.
+// plane copies of the TPU kernels have a counterpart here.
 #include <cstdint>
 
 #include "common.cuh"
 
 namespace icgn {
 
-constexpr int kHalo = kPsz + 3;  // support (psz+1) + 1-px halo each side
+constexpr int kMaxPsz = 16;  // K5/K6: largest patch side
 
+// halo[a][b] = img[r0 - 1 + a][c0 - 1 + b] for the (psz+3)^2 halo of the
+// support at (r0, c0); reads are clamped into the plane, and a clamped
+// read only ever feeds a masked-out difference.
+__device__ __forceinline__ void load_halo(const float* __restrict__ img, int Hp,
+                                          int Wp, int r0, int c0, int psz,
+                                          float* halo, int lane) {
+  const int hs = psz + 3;
+  for (int k = lane; k < hs * hs; k += 32) {
+    const int a = k / hs, b = k - a * hs;
+    const int y = min(max(r0 - 1 + a, 0), Hp - 1);
+    const int x = min(max(c0 - 1 + b, 0), Wp - 1);
+    halo[k] = img[(size_t)y * Wp + x];
+  }
+  __syncwarp();
+}
+
+// The patch and its two gradient patches from a staged halo.
+__device__ __forceinline__ void patch_grad_from_halo(
+    const float* halo, int Hp, int Wp, int r0, int c0, int psz, int pad,
+    float4 w, float* __restrict__ p_img, float* __restrict__ p_dx,
+    float* __restrict__ p_dy, int lane) {
+  const int hs = psz + 3;
+  for (int p = lane; p < psz * psz; p += 32) {
+    const int i = p / psz, j = p - i * psz;
+    float ti[4], tx[4], ty[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      // taps in weight order: (1,1), (1,0), (0,1), (0,0)
+      const int a = i + ((t < 2) ? 1 : 0);
+      const int b = j + ((t & 1) ? 0 : 1);
+      const int y = r0 + a, x = c0 + b;  // plane coords
+      const float* h = halo + (a + 1) * hs + (b + 1);
+      ti[t] = h[0];
+      const bool mdx = (y >= pad) && (y <= Hp - pad - 1) &&
+                       (x >= pad + 1) && (x <= Wp - pad - 2);
+      const bool mdy = (y >= pad + 1) && (y <= Hp - pad - 2) &&
+                       (x >= pad) && (x <= Wp - pad - 1);
+      tx[t] = mdx ? __fsub_rn(h[1], h[-1]) : 0.0f;
+      ty[t] = mdy ? __fsub_rn(h[hs], h[-hs]) : 0.0f;
+    }
+    p_img[p] = tap(w, ti[0], ti[1], ti[2], ti[3]);
+    p_dx[p] = tap(w, tx[0], tx[1], tx[2], tx[3]);
+    p_dy[p] = tap(w, ty[0], ty[1], ty[2], ty[3]);
+  }
+}
+
+// dst[a][b] = src[a][b] for a (wh, ww) window; src rows are Wp apart.
+__device__ __forceinline__ void copy_window(const float* __restrict__ src,
+                                            int Wp, int wh, int ww,
+                                            float* __restrict__ dst, int lane) {
+  for (int k = lane; k < wh * ww; k += 32) {
+    const int a = k / ww, b = k - a * ww;
+    dst[k] = src[(size_t)a * Wp + b];
+  }
+}
+
+// ------------------------------------------------------------------ K1
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 gather_ref_grad_windows_kernel(const float* __restrict__ rimg,
                                const float* __restrict__ qimg, int Hp, int Wp,
@@ -45,57 +108,84 @@ gather_ref_grad_windows_kernel(const float* __restrict__ rimg,
                                float* __restrict__ p_dx,
                                float* __restrict__ p_dy,
                                float* __restrict__ qwin, int M, int pad) {
-  __shared__ float halo_all[kWarpsPerBlock][kHalo * kHalo];
+  __shared__ float halo_all[kWarpsPerBlock][(kPsz + 3) * (kPsz + 3)];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int m = blockIdx.x * kWarpsPerBlock + warp;
   if (m >= M) return;  // warps are independent: no block barrier below
 
   const int4 id = idx[m];  // (support row, support col, window row, col)
-  const float4 w = wts[m];
   float* halo = halo_all[warp];
-
-  // halo[a][b] = rimg[r - 1 + a][c - 1 + b]; reads are clamped into the
-  // plane, and a clamped read only ever feeds a masked-out difference
-  for (int k = lane; k < kHalo * kHalo; k += 32) {
-    const int a = k / kHalo, b = k - a * kHalo;
-    const int y = min(max(id.x - 1 + a, 0), Hp - 1);
-    const int x = min(max(id.y - 1 + b, 0), Wp - 1);
-    halo[k] = rimg[(size_t)y * Wp + x];
-  }
-  __syncwarp();
-
+  load_halo(rimg, Hp, Wp, id.x, id.y, kPsz, halo, lane);
   const size_t out0 = (size_t)m * kNpix;
-  for (int p = lane; p < kNpix; p += 32) {
-    const int i = p / kPsz, j = p - (p / kPsz) * kPsz;
-    float ti[4], tx[4], ty[4];
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      // taps in weight order: (1,1), (1,0), (0,1), (0,0)
-      const int a = i + ((t < 2) ? 1 : 0);
-      const int b = j + ((t & 1) ? 0 : 1);
-      const int y = id.x + a, x = id.y + b;  // plane coords
-      const float* h = halo + (a + 1) * kHalo + (b + 1);
-      ti[t] = h[0];
-      const bool mdx = (y >= pad) && (y <= Hp - pad - 1) &&
-                       (x >= pad + 1) && (x <= Wp - pad - 2);
-      const bool mdy = (y >= pad + 1) && (y <= Hp - pad - 2) &&
-                       (x >= pad) && (x <= Wp - pad - 1);
-      tx[t] = mdx ? __fsub_rn(h[1], h[-1]) : 0.0f;
-      ty[t] = mdy ? __fsub_rn(h[kHalo], h[-kHalo]) : 0.0f;
-    }
-    p_img[out0 + p] = tap(w, ti[0], ti[1], ti[2], ti[3]);
-    p_dx[out0 + p] = tap(w, tx[0], tx[1], tx[2], tx[3]);
-    p_dy[out0 + p] = tap(w, ty[0], ty[1], ty[2], ty[3]);
-  }
+  patch_grad_from_halo(halo, Hp, Wp, id.x, id.y, kPsz, pad, wts[m],
+                       p_img + out0, p_dx + out0, p_dy + out0, lane);
+  copy_window(qimg + (size_t)id.z * Wp + id.w, Wp, kWin, kWin,
+              qwin + (size_t)m * (kWin * kWin), lane);
+}
 
-  const float* src = qimg + (size_t)id.z * Wp + id.w;
-  float* dst = qwin + (size_t)m * (kWin * kWin);
-  for (int k = lane; k < kWin * kWin; k += 32) {
-    const int a = k / kWin, b = k - a * kWin;
-    dst[k] = src[(size_t)a * Wp + b];
+// ------------------------------------------------------------------ K6
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+gather_patches_grad_kernel(const float* __restrict__ img, int Hp, int Wp,
+                           const int2* __restrict__ idx,
+                           const float4* __restrict__ wts,
+                           float* __restrict__ p_img, float* __restrict__ p_dx,
+                           float* __restrict__ p_dy, int M, int psz, int pad) {
+  __shared__ float halo_all[kWarpsPerBlock][(kMaxPsz + 3) * (kMaxPsz + 3)];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int m = blockIdx.x * kWarpsPerBlock + warp;
+  if (m >= M) return;
+
+  const int2 id = idx[m];
+  float* halo = halo_all[warp];
+  load_halo(img, Hp, Wp, id.x, id.y, psz, halo, lane);
+  const size_t out0 = (size_t)m * (psz * psz);
+  patch_grad_from_halo(halo, Hp, Wp, id.x, id.y, psz, pad, wts[m],
+                       p_img + out0, p_dx + out0, p_dy + out0, lane);
+}
+
+// ------------------------------------------------------------------ K5
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+gather_patches_kernel(const float* __restrict__ img, int Wp,
+                      const int2* __restrict__ idx,
+                      const float4* __restrict__ wts, float* __restrict__ out,
+                      int M, int psz) {
+  __shared__ float sup_all[kWarpsPerBlock][(kMaxPsz + 1) * (kMaxPsz + 1)];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int m = blockIdx.x * kWarpsPerBlock + warp;
+  if (m >= M) return;
+
+  const int2 id = idx[m];  // the support fits the plane: no clamp needed
+  const float4 w = wts[m];
+  float* sup = sup_all[warp];
+  const int ss = psz + 1;
+  copy_window(img + (size_t)id.x * Wp + id.y, Wp, ss, ss, sup, lane);
+  __syncwarp();
+  float* dst = out + (size_t)m * (psz * psz);
+  for (int p = lane; p < psz * psz; p += 32) {
+    const int i = p / psz, j = p - i * psz;
+    const float* s = sup + i * ss + j;
+    dst[p] = tap(w, s[ss + 1], s[ss], s[1], s[0]);
   }
 }
+
+// ------------------------------------------------------------------ K7
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+gather_windows_kernel(const float* __restrict__ img, int Wp,
+                      const int2* __restrict__ idx, float* __restrict__ out,
+                      int M, int wh, int ww) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int m = blockIdx.x * kWarpsPerBlock + warp;
+  if (m >= M) return;
+  const int2 id = idx[m];
+  copy_window(img + (size_t)id.x * Wp + id.y, Wp, wh, ww,
+              out + (size_t)m * (wh * ww), lane);
+}
+
+inline int blocks_for(int M) { return (M + kWarpsPerBlock - 1) / kWarpsPerBlock; }
 
 }  // namespace icgn
 
@@ -103,10 +193,44 @@ extern "C" int icgn_gather_ref_grad_windows(
     const float* rimg, const float* qimg, int Hp, int Wp, const int* idx,
     const float* wts, float* p_img, float* p_dx, float* p_dy, float* qwin,
     int M, int pad, void* stream) {
-  const int blocks = (M + icgn::kWarpsPerBlock - 1) / icgn::kWarpsPerBlock;
-  icgn::gather_ref_grad_windows_kernel<<<blocks, icgn::kWarpsPerBlock * 32, 0,
+  icgn::gather_ref_grad_windows_kernel<<<icgn::blocks_for(M),
+                                         icgn::kWarpsPerBlock * 32, 0,
                                          (cudaStream_t)stream>>>(
       rimg, qimg, Hp, Wp, reinterpret_cast<const int4*>(idx),
       reinterpret_cast<const float4*>(wts), p_img, p_dx, p_dy, qwin, M, pad);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int icgn_gather_patches_grad(const float* img, int Hp, int Wp,
+                                        const int* idx, const float* wts,
+                                        float* p_img, float* p_dx, float* p_dy,
+                                        int M, int psz, int pad, void* stream) {
+  if (psz < 2 || psz > icgn::kMaxPsz) return (int)cudaErrorInvalidValue;
+  icgn::gather_patches_grad_kernel<<<icgn::blocks_for(M),
+                                     icgn::kWarpsPerBlock * 32, 0,
+                                     (cudaStream_t)stream>>>(
+      img, Hp, Wp, reinterpret_cast<const int2*>(idx),
+      reinterpret_cast<const float4*>(wts), p_img, p_dx, p_dy, M, psz, pad);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int icgn_gather_patches(const float* img, int Hp, int Wp,
+                                   const int* idx, const float* wts, float* out,
+                                   int M, int psz, void* stream) {
+  if (psz < 2 || psz > icgn::kMaxPsz || Hp < psz + 1 || Wp < psz + 1)
+    return (int)cudaErrorInvalidValue;
+  icgn::gather_patches_kernel<<<icgn::blocks_for(M), icgn::kWarpsPerBlock * 32,
+                                0, (cudaStream_t)stream>>>(
+      img, Wp, reinterpret_cast<const int2*>(idx),
+      reinterpret_cast<const float4*>(wts), out, M, psz);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int icgn_gather_windows(const float* img, int Wp, const int* idx,
+                                   float* out, int M, int wh, int ww,
+                                   void* stream) {
+  icgn::gather_windows_kernel<<<icgn::blocks_for(M), icgn::kWarpsPerBlock * 32,
+                                0, (cudaStream_t)stream>>>(
+      img, Wp, reinterpret_cast<const int2*>(idx), out, M, wh, ww);
   return (int)cudaGetLastError();
 }

@@ -16,14 +16,17 @@ that would leave the plane is moved back inside it, as
 points with ``pose.in_frustum``).  The patch mean, when asked for, is
 taken on the intensity plane only.
 
-These functions are the building blocks of K1's plain version
-(``ops/patch_gather.py``); the Pallas kernels that carry them on the
-TPU outside the tracker's fused path (K5, K6) are not yet ported.
+``extract_patches`` and ``extract_patches_grad`` dispatch as the JAX
+module's do: a CUDA tensor goes to the hand-written kernels K5 and K6
+(``ops/patch_gather.py``), a CPU tensor to their plain versions there,
+which are built from the index, slice and tap helpers below.
 """
 
 from __future__ import annotations
 
 import torch
+
+_FAR = float(2 ** 30)
 
 
 def bilinear_base(centers: torch.Tensor, psz: int, padding: int):
@@ -31,8 +34,10 @@ def bilinear_base(centers: torch.Tensor, psz: int, padding: int):
     the padded plane (not clamped) and the 4 weights (..., 4)."""
     x = centers[..., 0]
     y = centers[..., 1]
-    u0 = torch.ceil(x + 1e-5).to(torch.int32)
-    v0 = torch.ceil(y + 1e-5).to(torch.int32)
+    # a float beyond int32 converts differently on the CPU and on the
+    # card: clamp first (such a center is far outside any image)
+    u0 = torch.clamp(torch.ceil(x + 1e-5), -_FAR, _FAR).to(torch.int32)
+    v0 = torch.clamp(torch.ceil(y + 1e-5), -_FAR, _FAR).to(torch.int32)
     rx = x - torch.floor(x)
     ry = y - torch.floor(y)
     w = torch.stack([rx * ry, (1.0 - rx) * ry, rx * (1.0 - ry),
@@ -47,13 +52,13 @@ def clamp_to_fit(start: torch.Tensor, size: int, extent: int) -> torch.Tensor:
 
 
 def slice_windows(plane: torch.Tensor, row0: torch.Tensor, col0: torch.Tensor,
-                  size: int) -> torch.Tensor:
-    """plane (..., Hp, Wp); starts (M,) -> (..., M, size, size), each
-    start clamped to fit."""
+                  size) -> torch.Tensor:
+    """plane (..., Hp, Wp); starts (M,) -> (..., M, h, w) with ``size``
+    = h = w or (h, w), each start clamped to fit."""
     Hp, Wp = plane.shape[-2:]
-    ar = torch.arange(size, device=plane.device)
-    rows = clamp_to_fit(row0, size, Hp).long()[:, None] + ar
-    cols = clamp_to_fit(col0, size, Wp).long()[:, None] + ar
+    h, w = (size, size) if isinstance(size, int) else size
+    rows = clamp_to_fit(row0, h, Hp).long()[:, None] + torch.arange(h, device=plane.device)
+    cols = clamp_to_fit(col0, w, Wp).long()[:, None] + torch.arange(w, device=plane.device)
     return plane[..., rows[:, :, None], cols[:, None, :]]
 
 
@@ -64,30 +69,27 @@ def combine(window: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             + w[:, 2] * window[..., :-1, 1:] + w[:, 3] * window[..., :-1, :-1])
 
 
-def _patch_mean_removed(p: torch.Tensor) -> torch.Tensor:
+def patch_mean_removed(p: torch.Tensor) -> torch.Tensor:
     return p - torch.mean(p, dim=(-2, -1), keepdim=True)
 
 
 def extract_patches(img: torch.Tensor, centers: torch.Tensor, psz: int,
                     padding: int, patch_norm: bool = False) -> torch.Tensor:
-    """img (Hp, Wp) padded; centers (..., 2) -> (..., psz, psz)."""
-    lead = centers.shape[:-1]
-    row0, col0, w = bilinear_base(centers.reshape(-1, 2), psz, padding)
-    patches = combine(slice_windows(img, row0, col0, psz + 1), w)
-    patches = patches.reshape(lead + (psz, psz))
-    return _patch_mean_removed(patches) if patch_norm else patches
+    """img (Hp, Wp) padded; centers (..., 2) -> (..., psz, psz).  K5 on
+    a CUDA tensor, its plain version on a CPU tensor."""
+    from invcompcamtrack_torch.ops import patch_gather
+
+    return patch_gather.gather_patches(img, centers, psz, padding, patch_norm)
 
 
 def extract_patches_grad(img: torch.Tensor, dx: torch.Tensor, dy: torch.Tensor,
                          centers: torch.Tensor, psz: int, padding: int,
                          patch_norm: bool = False):
     """One (I, dI/dx, dI/dy) gather sharing indices and weights ->
-    three (..., psz, psz) tensors; the mean applies to I only."""
-    lead = centers.shape[:-1]
-    row0, col0, w = bilinear_base(centers.reshape(-1, 2), psz, padding)
-    planes = torch.stack([img, dx, dy])
-    patches = combine(slice_windows(planes, row0, col0, psz + 1), w)
-    p_img, p_dx, p_dy = (patches[k].reshape(lead + (psz, psz)) for k in range(3))
-    if patch_norm:
-        p_img = _patch_mean_removed(p_img)
-    return p_img, p_dx, p_dy
+    three (..., psz, psz) tensors; the mean applies to I only.  K6 on a
+    CUDA tensor (it forms the gradients from ``img`` and reads neither
+    ``dx`` nor ``dy``), its plain version on a CPU tensor."""
+    from invcompcamtrack_torch.ops import patch_gather
+
+    return patch_gather.gather_patches_grad(img, dx, dy, centers, psz, padding,
+                                            patch_norm)

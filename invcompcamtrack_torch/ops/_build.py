@@ -23,8 +23,8 @@ from pathlib import Path
 
 import torch
 
-# the patch and window sides the kernels are compiled for
-# (csrc/common.cuh: kPsz, kWin)
+# the patch and window sides K1, K2 and K3 are compiled for
+# (csrc/common.cuh: kPsz, kWin); K4-K7 take theirs at run time
 PSZ = 8
 WIN = 16
 
@@ -42,6 +42,14 @@ _SIGNATURES = {
     # rimg, qimg, Hp, Wp, idx, wts, p_img, p_dx, p_dy, qwin, M, pad, stream
     "icgn_gather_ref_grad_windows": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P,
                                      _I, _I, _P],
+    # img, Hp, Wp, idx, wts, out, M, psz, stream
+    "icgn_gather_patches": [_P, _I, _I, _P, _P, _P, _I, _I, _P],
+    # img, Hp, Wp, idx, wts, p_img, p_dx, p_dy, M, psz, pad, stream
+    "icgn_gather_patches_grad": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # img, Wp, idx, out, M, wh, ww, stream
+    "icgn_gather_windows": [_P, _I, _P, _P, _I, _I, _I, _P],
+    # img_b, img_r, img_f, Hp, Wp, idx, wts, out, M, psz, stream
+    "icgn_ncc3_scores": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _P],
     # qwin, ref, pdx, pdy, row_w, col_w, wts, valid, out, M, norm, bf16, stream
     "icgn_resample_project": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # qwin, ref, row_w, col_w, wts, valid, out, M, norm, bf16, stream

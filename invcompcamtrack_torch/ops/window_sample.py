@@ -7,16 +7,22 @@ patch from that window.  The tap math is ``image/patch.py``'s
 (``bilinear_base``, ``combine``); the integer offset of the tap support
 inside the window is clamped to ``[0, win - psz - 1]``.
 
-``sample_from_windows`` is the readable spec of the resample inside K2
+``sample_from_windows`` resamples on the tracker's non-fused path
+(``psz != 8``) and is the readable spec of the resample inside K2
 (``ops/icgn_iter.py``), which takes the offsets and weights that
-``window_taps`` computes.
+``window_taps`` computes.  The JAX module reaches the tap support by a
+select-shift over the possible offsets, which spares its device a
+gather; here the window is indexed at ``(row_w, col_w)`` directly, which
+picks the same floats for the same 4-tap sum.  ``gather_windows_any``
+fills the cache: K7 (``ops/patch_gather.py``) on a CUDA tensor, its
+plain version on a CPU tensor.
 """
 
 from __future__ import annotations
 
 import torch
 
-from invcompcamtrack_torch.image.patch import bilinear_base, combine, slice_windows
+from invcompcamtrack_torch.image.patch import bilinear_base, combine
 
 
 def window_origin(centers: torch.Tensor, psz: int, win: int,
@@ -77,7 +83,7 @@ def gather_windows_any(img: torch.Tensor, origins: torch.Tensor,
     """Integer-origin (win, win) windows of the PADDED image; origins
     (..., 2) int32.  A window that would leave the image is moved back
     inside it (the ``dynamic_slice`` rule of the JAX package's XLA
-    path)."""
-    flat = origins.reshape(-1, 2)
-    out = slice_windows(img, flat[:, 0], flat[:, 1], win)
-    return out.reshape(origins.shape[:-1] + (win, win))
+    path).  K7 on a CUDA tensor, its plain version on a CPU tensor."""
+    from invcompcamtrack_torch.ops import patch_gather
+
+    return patch_gather.gather_windows(img, origins, win, win)

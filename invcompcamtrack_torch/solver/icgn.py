@@ -1,14 +1,23 @@
 """Inverse-compositional Gauss-Newton 6-DoF pose tracking (port of
 ``invcompcamtrack_tpu/solver/icgn.py``).
 
-The port runs the JAX module's fused path (``window_cache=True``): per
-scale one dual gather (K1, ``ops/patch_gather.py``) gives the reference
-patches, their gradients and the query windows; per GN iteration one
-fused resample + residual + projection (K2, ``ops/icgn_iter.py``) gives
+The fused path (``window_cache=True`` and ``psz == 8``): per scale one
+dual gather (K1, ``ops/patch_gather.py``) gives the reference patches,
+their gradients and the query windows; per GN iteration one fused
+resample + residual + projection (K2, ``ops/icgn_iter.py``) gives
 ``(gx, gy)`` per point.  The steepest-descent planes factor as
 ``sd_k = jx_k p_dx + jy_k p_dy``, so the Hessian is three patch moments
 contracted with the Jacobian rows and ``rhs = jx gx + jy gy``; the
 ``(N, 6, psz*psz)`` steepest-descent tensor never exists.
+
+The non-fused paths (any other even ``psz``, or ``window_cache=False``)
+are the JAX module's: ``extract_patches_grad`` (K6) gives the reference
+patches, the steepest-descent tensor ``(..., N, 6, psz*psz)`` is built
+and ``H = sd sd^T``; the query patches come per iteration from windows
+cached once per scale (K7, then ``sample_from_windows``) or, with
+``window_cache=False``, from the image itself (K5); ``rhs = sd pdiff``.
+The contractions are ``torch.einsum`` (TF32 off), as the JAX module
+leaves them to XLA.
 
 ``lax.while_loop`` becomes a fixed ``maxiter`` loop in which converged
 lanes freeze (the update is masked by ``active``), so the loop needs no
@@ -26,10 +35,16 @@ from invcompcamtrack_torch import ICGNParams
 from invcompcamtrack_torch.core import lie
 from invcompcamtrack_torch.core import pose as pose_ops
 from invcompcamtrack_torch.core.camera import CameraPyramid
+from invcompcamtrack_torch.image.patch import extract_patches, extract_patches_grad
 from invcompcamtrack_torch.image.pyramid import Pyramid
 from invcompcamtrack_torch.ops import _build, icgn_iter, patch_gather
 from invcompcamtrack_torch.ops.linalg import cholesky_solve_sym
-from invcompcamtrack_torch.ops.window_sample import window_origin, window_taps
+from invcompcamtrack_torch.ops.window_sample import (
+    gather_windows_any,
+    sample_from_windows,
+    window_origin,
+    window_taps,
+)
 
 # The reference seeds both norm trackers with 1e-10 so the first
 # iteration always runs (reference: odometer.cpp:341-345).
@@ -58,27 +73,34 @@ def sd_jacobian_rows(Xc: torch.Tensor, fx, fy):
     return jx, jy
 
 
+def steepest_descent_images(p_dx: torch.Tensor, p_dy: torch.Tensor,
+                            Xc: torch.Tensor, fx, fy) -> torch.Tensor:
+    """The 6 steepest-descent planes from gradient patches (..., N, psz,
+    psz) and camera-frame points (..., N, 3) -> (..., N, 6, psz, psz):
+    sd_k = jx_k * p_dx + jy_k * p_dy (reference: odometer.cpp:302-328)."""
+    jx, jy = sd_jacobian_rows(Xc, fx, fy)
+    return (jx[..., :, None, None] * p_dx[..., None, :, :]
+            + jy[..., :, None, None] * p_dy[..., None, :, :])
+
+
 def cam_level_padding(cfg: ICGNParams) -> int:
     """Pyramid levels are padded by psz."""
     return cfg.psz
 
 
+def fused_supported(psz: int, win: int) -> bool:
+    """K1 and K2 are built for one patch and window side (the rule of the
+    JAX package's ``icgn_iter_pallas.supported``)."""
+    return psz == _build.PSZ and win == _build.WIN
+
+
 def _check_cfg(cfg: ICGNParams) -> None:
-    if cfg.psz != _build.PSZ:
-        raise NotImplementedError(
-            f"psz={cfg.psz}: the fused path is built for psz={_build.PSZ}; "
-            "the JAX package's steepest-descent path for other patch sizes "
-            "is not yet ported")
-    if not cfg.window_cache:
-        raise NotImplementedError(
-            "window_cache=False gathers patches every iteration through the "
-            "TPU kernels K5/K6 (gather_patches, gather_patches_grad), which "
-            "are not yet ported")
     if cfg.gather_prefetch:
         raise NotImplementedError(
             "gather_prefetch=True routes the dual gather through K9 "
             "(gather_ref_grad_and_windows_prefetch), which is not yet ported")
-    # cfg.gather_split only sizes TPU VMEM; it changes nothing here.
+    # cfg.gather_split only sizes the JAX kernels' fast memory; it
+    # changes nothing here.
 
 
 def _outer_sum(a: torch.Tensor, b: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
@@ -86,34 +108,27 @@ def _outer_sum(a: torch.Tensor, b: torch.Tensor, m: torch.Tensor) -> torch.Tenso
     return torch.matmul(a.transpose(-1, -2), b * m[..., None])
 
 
-def _track_one_scale(level_ref, level_new, Xn, Xc_ref, uv_ref, p, cam_level,
-                     cfg: ICGNParams, point_mask=None, scale_index: int = 0):
-    fx, fy, cx, cy, swo, sho = cam_level
-    lead = Xn.shape[:-2]
-    N = Xn.shape[-2]
-    pad = cam_level_padding(cfg)
-    win = cfg.window_size
-
-    valid_ref = pose_ops.in_frustum(uv_ref, swo, sho) & (Xc_ref[..., 2] > 0)
-    if point_mask is not None:
-        valid_ref = valid_ref & point_mask
-    # NaN/inf projections would poison the bilinear weights: sample
-    # invalid points at a harmless fixed position instead
-    uv_ref = torch.where(valid_ref[..., None], uv_ref, torch.zeros_like(uv_ref))
-
-    # [4] ONE dual gather per scale: reference patches + gradients and
-    # the query windows at the scale-entry projections
+def _entry_origins(p, Xn, valid_ref, cam_level, cfg: ICGNParams) -> torch.Tensor:
+    """Window origins at the scale-entry projections."""
+    fx, fy, cx, cy, _, _ = cam_level
     uv_entry = pose_ops.project_points(lie.se3_exp(p), Xn, fx, fy, cx, cy)
     uv_entry = torch.where(torch.isfinite(uv_entry) & valid_ref[..., None],
                            uv_entry, torch.zeros_like(uv_entry))
-    origins = window_origin(uv_entry, cfg.psz, win, pad)
+    return window_origin(uv_entry, cfg.psz, cfg.window_size, cam_level_padding(cfg))
+
+
+def _fused_scale(level_ref, level_new, uv_ref, Xc_safe, valid_ref, origins,
+                 cam_level, cfg: ICGNParams):
+    """K1 once, then K2 per iteration -> (H, rhs_of(uv_new, valid_new))."""
+    fx, fy = cam_level[:2]
+    lead, N = uv_ref.shape[:-2], uv_ref.shape[-2]
+    pad, win = cam_level_padding(cfg), cfg.window_size
+    # [4] ONE dual gather per scale: reference patches + gradients and
+    # the query windows at the scale-entry projections
     p_img, p_dx, p_dy, qwin = patch_gather.gather_ref_grad_windows(
         level_ref, level_new.img, uv_ref, origins, cfg.psz, pad, win,
         patch_norm=cfg.dopatchnorm)
-
-    # [5]+[6] Jacobian rows (masked; invalid points sanitised before the
-    # division by z) and the Hessian from three patch moments
-    Xc_safe = torch.where(valid_ref[..., None], Xc_ref, torch.ones_like(Xc_ref))
+    # [5]+[6] masked Jacobian rows and the Hessian from three patch moments
     jx, jy = sd_jacobian_rows(Xc_safe, fx, fy)
     vmask = valid_ref[..., None].to(p_img.dtype)
     jx = jx * vmask
@@ -134,6 +149,78 @@ def _track_one_scale(level_ref, level_new, Xn, Xc_ref, uv_ref, p, cam_level,
     pdy_f = p_dy.reshape(-1, npix).to(store_dt).contiguous()
     qwin_f = qwin.reshape(-1, win * win).to(store_dt).contiguous()
 
+    def rhs_of(uv_new, valid_new):
+        # [8]+[9a] resample + residual + projection: ONE kernel
+        row_w, col_w, wts = window_taps(uv_new, origins, cfg.psz, pad, win)
+        g = icgn_iter.fused_resample_project(
+            qwin_f, ref_f, pdx_f, pdy_f,
+            row_w.reshape(-1).contiguous(), col_w.reshape(-1).contiguous(),
+            wts.reshape(-1, 4).float().contiguous(),
+            valid_new.reshape(-1).float().contiguous(),
+            patch_norm=cfg.dopatchnorm).reshape(lead + (N, 2)).to(jx.dtype)
+        return (torch.matmul(jx.transpose(-1, -2), g[..., 0:1])
+                + torch.matmul(jy.transpose(-1, -2), g[..., 1:2]))[..., 0]
+
+    return H, rhs_of
+
+
+def _sd_scale(level_ref, level_new, uv_ref, Xc_safe, valid_ref, origins,
+              cam_level, cfg: ICGNParams):
+    """The steepest-descent path: K6 once (and K7 once with the window
+    cache), then per iteration a resample from the windows or K5 ->
+    (H, rhs_of(uv_new, valid_new))."""
+    fx, fy = cam_level[:2]
+    lead, N = uv_ref.shape[:-2], uv_ref.shape[-2]
+    pad, npix = cam_level_padding(cfg), cfg.novals
+    p_img, p_dx, p_dy = extract_patches_grad(
+        level_ref.img, level_ref.dx, level_ref.dy, uv_ref, cfg.psz, pad,
+        patch_norm=cfg.dopatchnorm)
+    # [5] steepest-descent planes, masked (explicit zeros)
+    sd = steepest_descent_images(p_dx, p_dy, Xc_safe, fx, fy)
+    sd = sd * valid_ref[..., None, None, None].to(sd.dtype)
+    sd_flat = sd.reshape(lead + (N, 6, npix))
+    # [6] 6x6 Hessian: one contraction over (point, pixel) pairs
+    H = torch.einsum("...nkp,...nlp->...kl", sd_flat, sd_flat)
+    ref_flat = (p_img * valid_ref[..., None, None].to(p_img.dtype)
+                ).reshape(lead + (N, npix))
+    qwin = (gather_windows_any(level_new.img, origins, cfg.window_size)
+            if cfg.window_cache else None)
+
+    def rhs_of(uv_new, valid_new):
+        # [8] query patches, [9a] error image and its sd projection
+        if cfg.window_cache:
+            q = sample_from_windows(qwin, origins, uv_new, cfg.psz, pad,
+                                    patch_norm=cfg.dopatchnorm)
+        else:
+            q = extract_patches(level_new.img, uv_new, cfg.psz, pad,
+                                patch_norm=cfg.dopatchnorm)
+        pdiff = (ref_flat - q.reshape(lead + (N, npix))) * valid_new[..., None].to(q.dtype)
+        return torch.einsum("...nkp,...np->...k", sd_flat, pdiff)
+
+    return H, rhs_of
+
+
+def _track_one_scale(level_ref, level_new, Xn, Xc_ref, uv_ref, p, cam_level,
+                     cfg: ICGNParams, point_mask=None, scale_index: int = 0):
+    fx, fy, cx, cy, swo, sho = cam_level
+    lead = Xn.shape[:-2]
+
+    valid_ref = pose_ops.in_frustum(uv_ref, swo, sho) & (Xc_ref[..., 2] > 0)
+    if point_mask is not None:
+        valid_ref = valid_ref & point_mask
+    # NaN/inf projections would poison the bilinear weights: sample
+    # invalid points at a harmless fixed position instead
+    uv_ref = torch.where(valid_ref[..., None], uv_ref, torch.zeros_like(uv_ref))
+    # invalid points are sanitised before the Jacobian divides by z
+    Xc_safe = torch.where(valid_ref[..., None], Xc_ref, torch.ones_like(Xc_ref))
+
+    origins = (_entry_origins(p, Xn, valid_ref, cam_level, cfg)
+               if cfg.window_cache else None)
+    scale = (_fused_scale if cfg.window_cache and fused_supported(cfg.psz, cfg.window_size)
+             else _sd_scale)
+    H, rhs_of = scale(level_ref, level_new, uv_ref, Xc_safe, valid_ref, origins,
+                      cam_level, cfg)
+
     dev = p.device
     it_count = torch.zeros((), dtype=torch.int32, device=dev)
     normdp = torch.full(lead, _NORMDP_INIT, dtype=p.dtype, device=dev)
@@ -148,16 +235,7 @@ def _track_one_scale(level_ref, level_new, Xn, Xc_ref, uv_ref, p, cam_level,
         valid_new = (pose_ops.in_frustum(uv_new, swo, sho) & valid_ref
                      & (Xc_new[..., 2] > 0))
         uv_new = torch.where(valid_new[..., None], uv_new, torch.zeros_like(uv_new))
-        # [8]+[9a] resample + residual + projection: ONE kernel
-        row_w, col_w, wts = window_taps(uv_new, origins, cfg.psz, pad, win)
-        g = icgn_iter.fused_resample_project(
-            qwin_f, ref_f, pdx_f, pdy_f,
-            row_w.reshape(-1).contiguous(), col_w.reshape(-1).contiguous(),
-            wts.reshape(-1, 4).float().contiguous(),
-            valid_new.reshape(-1).float().contiguous(),
-            patch_norm=cfg.dopatchnorm).reshape(lead + (N, 2)).to(p.dtype)
-        rhs = (torch.matmul(jx.transpose(-1, -2), g[..., 0:1])
-               + torch.matmul(jy.transpose(-1, -2), g[..., 1:2]))[..., 0]
+        rhs = rhs_of(uv_new, valid_new)
         # [9b] 6x6 normal equations; [10] additive coefficient update
         delta = cholesky_solve_sym(H, rhs) * active[..., None].to(p.dtype)
         p = p + delta
@@ -232,7 +310,8 @@ def track_pose_batch(pyr_ref: Pyramid, pyr_new: Pyramid, X: torch.Tensor,
                      point_mask: torch.Tensor | None = None):
     """Batched tracking over a shared image pair: X (B, N, 3), p_init
     (B, 6), optional point_mask (B, N) -> (B, 6).  All B*N points go
-    through one K1 launch per scale and one K2 launch per iteration."""
+    through one launch per scale (K1, or K6 and K7) and one per
+    iteration (K2, or K5 without the window cache)."""
     return track_pose(pyr_ref, pyr_new, X, p_init, cam, cfg,
                       point_mask=point_mask)
 

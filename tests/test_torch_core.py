@@ -69,12 +69,12 @@ def test_skew_and_camera_center(rng):
 def test_camera_pyramid_matches_jax():
     fc, cc, wh = (1000.0, 1200.0), (641.5, 358.0), (1280, 720)
     cam_jax = JCam.create(fc, cc, wh, 5, 8)
-    cam = CameraPyramid.create(fc, cc, wh, 5, 8)
+    cam = CameraPyramid.create(fc, cc, wh, 5, 8, device="cpu")
     for s in range(5):
         for a, b in zip(cam.level(s), cam_jax.level(s)):
             assert a.dtype == torch.float32
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-    conv = convert.camera_from_numpy(cam_jax)
+    conv = convert.camera_from_numpy(cam_jax, "cpu")
     assert conv.padding == 8 and conv.num_levels == 5
     np.testing.assert_array_equal(conv.fx.numpy(), cam.fx.numpy())
 

@@ -14,8 +14,15 @@ Tolerances (kernel vs plain version, same inputs, both on the card):
 - K2: the 64-pixel sums of the mean and of (gx, gy) run in a warp
   butterfly: 1e-5 of sum |p_d * pdiff|.  K3: exact without the mean,
   4e-5 (about 1 ulp of intensities below 256) with it.
-- The tracker, card vs CPU: other summation orders in H, rhs and
-  (gx, gy), iterated; 1e-4 on the pose coefficients.
+- K5, K6: the plain version's float operations in its order; K7: a
+  copy.  Bit-exact, at psz 8, 6 and 16, border centers included.
+- K4: three butterfly sums per patch and one division: 2e-5 of
+  sum|p_a p_b| / (n_a n_b), plus 8 MEAN_EPS (1/n_a + 1/n_b) for the
+  other summation order of the patch mean (MEAN_EPS = 6.2e-5, 2 ulp of
+  256), which decides the score of a flat patch; scores stay in [0, 1].
+- The tracker and the verifier, card vs CPU: other summation orders in
+  H, rhs and (gx, gy), iterated; 1e-4 on the pose coefficients, 5e-3 on
+  the correlations.
 """
 
 import numpy as np
@@ -26,9 +33,9 @@ from invcompcamtrack_torch import ICGNParams, synthetic
 from invcompcamtrack_torch.core import lie
 from invcompcamtrack_torch.core.camera import CameraPyramid
 from invcompcamtrack_torch.image.pyramid import PyramidLevel, build_pyramid
-from invcompcamtrack_torch.ops import icgn_iter, patch_gather
+from invcompcamtrack_torch.ops import icgn_iter, ncc3, patch_gather
 from invcompcamtrack_torch.ops import window_sample as ws
-from invcompcamtrack_torch.solver import icgn
+from invcompcamtrack_torch.solver import chain, icgn
 
 torch.set_num_threads(1)  # tier-1 runs several xdist workers on a few cores
 pytestmark = pytest.mark.requires_cuda
@@ -152,3 +159,120 @@ def test_track_pose_batch_on_card_matches_cpu(pair, cuda_device):
                     icgn_iter.launches["project"] - n2)
         assert launched == ((0, 0) if str(dev) == "cpu" else (2, 20))
     torch.testing.assert_close(out["cuda"], out["cpu"], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("psz", [8, 6, 16])
+def test_k5_k6_k7_kernels_match_plain(pair, cuda_device, psz):
+    _, _, img_ref, _, _ = pair
+    lvl = build_pyramid(t32(img_ref, cuda_device), 2, psz)[1]
+    rng = np.random.default_rng(10)
+    w, h = 160.0, 120.0
+    centers = t32(np.r_[np.c_[rng.uniform(0, w, 300), rng.uniform(0, h, 300)],
+                        [[w, h], [0.2, h], [w, 3.5], [0, 0], [0, h], [w, 0],
+                         [-40, -40], [1e9, 5], [5, -1e12]]], cuda_device)
+    win = psz + 8
+    origins = ws.window_origin(centers + 1.25, psz, win, psz)
+    n0 = dict(patch_gather.launches)
+    for pn in (False, True):
+        got = patch_gather.gather_patches(lvl.img, centers, psz, psz, pn)
+        want = patch_gather.gather_patches_plain(lvl.img, centers, psz, psz, pn)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        got = patch_gather.gather_patches_grad(lvl.img, lvl.dx, lvl.dy, centers, psz, psz, pn)
+        want = patch_gather.gather_patches_grad_plain(lvl.img, lvl.dx, lvl.dy, centers,
+                                                      psz, psz, pn)
+        for g, w_ in zip(got, want):
+            torch.testing.assert_close(g, w_, rtol=0, atol=0)
+    for wh, ww in ((win, win), (3, win), (win, 5)):
+        got = patch_gather.gather_windows(lvl.img, origins, wh, ww)
+        want = patch_gather.gather_windows_plain(lvl.img, origins, wh, ww)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.cuda.synchronize()
+    assert patch_gather.launches == {
+        "gather_ref_grad_windows": n0["gather_ref_grad_windows"],
+        "gather_patches": n0["gather_patches"] + 2,
+        "gather_patches_grad": n0["gather_patches_grad"] + 2,
+        "gather_windows": n0["gather_windows"] + 3}
+    with pytest.raises(NotImplementedError):
+        patch_gather.gather_patches(lvl.img, centers, 18, psz)
+    with pytest.raises(ValueError, match="float32"):
+        patch_gather.gather_patches_grad(lvl.img.double(), lvl.dx, lvl.dy, centers, psz, psz)
+    with pytest.raises(ValueError, match="int32"):
+        patch_gather.gather_windows(lvl.img, origins.long(), win, win)
+
+
+@pytest.mark.parametrize("psz", [8, 4, 16])
+def test_k4_kernel_matches_plain(pair, cuda_device, psz):
+    _, _, img_ref, img_new, _ = pair
+    pad = psz
+    planes = [build_pyramid(t32(im, cuda_device), 1, pad)[0].img
+              for im in (img_ref, img_new, img_ref[::-1].copy())]
+    planes[2][:40, :40] = 77.25                      # a flat corner
+    rng = np.random.default_rng(11)
+    w, h = 320.0, 240.0
+    base = np.r_[np.c_[rng.uniform(0, w, 400), rng.uniform(0, h, 400)],
+                 [[w, h], [0.0, 0.0], [0.3, h], [-60, -60], [1e9, 3.0], [3.0, -1e12]]]
+    uvs = [t32(base + rng.uniform(-1.5, 1.5, base.shape) * (k != 1), cuda_device)
+           for k in range(3)]
+    uvs[2][:3] = t32([[6.5, 5.25], [4.0, 7.5], [7.75, 4.5]], cuda_device)   # flat fwd
+    n0 = ncc3.launches["ncc3_scores"]
+    got = ncc3.ncc3_scores(*planes, *uvs, psz, pad)
+    torch.cuda.synchronize()
+    assert ncc3.launches["ncc3_scores"] == n0 + 1
+    want = ncc3.ncc3_scores_plain(*planes, *uvs, psz, pad)
+    pats = [patch_gather.gather_patches_plain(im, uv, psz, pad, patch_norm=True)
+            .reshape(len(base), -1) for im, uv in zip(planes, uvs)]
+    nrm = [torch.clamp(torch.linalg.vector_norm(p, dim=-1), min=1e-15) for p in pats]
+    for (a, b), g, w_ in zip(((0, 1), (1, 2)), got, want):
+        scale = (pats[a] * pats[b]).abs().sum(-1) / (nrm[a] * nrm[b])
+        tol = 2e-5 * scale + 8 * 6.2e-5 * (1 / nrm[a] + 1 / nrm[b])
+        assert bool(torch.all((g - w_).abs() <= tol))
+        assert bool(torch.isfinite(g).all()) and 0.0 <= float(g.min())
+        assert float(g.max()) <= 1.0 + 1e-5
+    assert bool((nrm[2][:3] < 1e-3).all())           # the flat patches are flat
+    with pytest.raises(ValueError, match="is on"):
+        ncc3.ncc3_scores(planes[0].cpu(), *planes[1:], *uvs, psz, pad)
+    with pytest.raises(NotImplementedError):
+        ncc3.ncc3_scores(*planes, *uvs, 5, pad)
+
+
+@pytest.mark.parametrize("kw,want", [
+    (dict(psz=4), dict(gather_patches_grad=2, gather_windows=2)),
+    (dict(psz=8, window_cache=False), dict(gather_patches_grad=2, gather_patches=20)),
+], ids=["psz4", "psz8-nocache"])
+def test_non_fused_tracker_on_card_matches_cpu(pair, cuda_device, kw, want):
+    sc, _, img_ref, img_new, X = pair
+    Xb = np.stack([X, X[::-1]])
+    cfg = ICGNParams(lv_f=1, lv_l=0, maxiter=10, normdp_ratio=0.01, **kw)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        cam = CameraPyramid.create(sc.fc, sc.cc, sc.wh, 2, cfg.psz, device=dev)
+        n0 = dict(patch_gather.launches)
+        out[str(dev)] = icgn.track_pose_batch(
+            build_pyramid(t32(img_ref, dev), 2, cfg.psz),
+            build_pyramid(t32(img_new, dev), 2, cfg.psz),
+            t32(Xb, dev), torch.zeros((2, 6), device=dev), cam, cfg).cpu()
+        launched = {k: v - n0[k] for k, v in patch_gather.launches.items() if v != n0[k]}
+        assert launched == ({} if str(dev) == "cpu" else want)
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=0, atol=1e-4)
+
+
+def test_track_nposes_on_card_matches_cpu(pair, cuda_device):
+    sc, p_gt, img_ref, img_new, X = pair
+    rng = np.random.default_rng(12)
+    hyp = t32(np.r_[[np.zeros(6)], rng.normal(size=(2, 6)) * 3e-4,
+                    [[0.6, -0.5, 0.3, 0.25, -0.2, 0.15]]])
+    masks = torch.tensor(rng.uniform(size=(4, len(X))) < 0.8)
+    cfg = ICGNParams(lv_f=1, lv_l=0, psz=8, maxiter=10, normdp_ratio=0.01)
+    res = {}
+    for dev in ("cpu", cuda_device):
+        cam = CameraPyramid.create(sc.fc, sc.cc, sc.wh, 2, 8, device=dev)
+        pyrs = [build_pyramid(t32(im, dev), 2, 8) for im in (img_new, img_ref, img_new)]
+        n4 = ncc3.launches["ncc3_scores"]
+        res[str(dev)] = chain.track_nposes(pyrs, hyp.to(dev), t32(X, dev), masks.to(dev),
+                                           cam, cfg, fb_frames=(1, 1))
+        assert ncc3.launches["ncc3_scores"] - n4 == (0 if str(dev) == "cpu" else 1)
+    a, b = res["cuda"], res["cpu"]
+    torch.testing.assert_close(a.pose_tracks[:3].cpu(), b.pose_tracks[:3], rtol=0, atol=1e-4)
+    assert bool(((a.correlations.cpu() == -1) == (b.correlations == -1))[:3].all())
+    torch.testing.assert_close(a.correlations[:3].cpu(), b.correlations[:3], rtol=0, atol=5e-3)
+    assert int(chain.select_best(a, torch.ones(4, dtype=torch.bool, device=cuda_device))[0]) < 3

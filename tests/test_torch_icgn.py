@@ -69,7 +69,7 @@ def _jax_inputs(s, levels):
 def _port_inputs(s, levels, cam_jax):
     return (build_pyramid(t32(s["img_ref"]), levels, 8),
             build_pyramid(t32(s["img_new"]), levels, 8),
-            convert.camera_from_numpy(cam_jax))
+            convert.camera_from_numpy(cam_jax, "cpu"))
 
 
 @pytest.mark.parametrize("donorm,dopatchnorm",
@@ -128,7 +128,7 @@ def test_track_pose_matches_numpy_oracle(scene, donorm, dopatchnorm):
         icgn_np.build_pyramid(scene["img_ref"].astype(np.float64), 2, 8),
         icgn_np.build_pyramid(scene["img_new"].astype(np.float64), 2, 8),
         scene["X"].astype(np.float64), np.zeros(6), sc.fc, sc.cc, sc.wh, cfg)
-    cam = convert.camera_from_numpy(JCam.create(sc.fc, sc.cc, sc.wh, 2, 8))
+    cam = convert.camera_from_numpy(JCam.create(sc.fc, sc.cc, sc.wh, 2, 8), "cpu")
     p = icgn.track_pose(build_pyramid(t32(scene["img_ref"]), 2, 8),
                         build_pyramid(t32(scene["img_new"]), 2, 8),
                         t32(scene["X"]), torch.zeros(6), cam, cfg)
@@ -137,14 +137,17 @@ def test_track_pose_matches_numpy_oracle(scene, donorm, dopatchnorm):
 
 def test_unported_paths_raise_and_tpu_only_flags_change_nothing(scene):
     sc = scene["sc"]
-    cam = convert.camera_from_numpy(JCam.create(sc.fc, sc.cc, sc.wh, 2, 8))
+    cam = convert.camera_from_numpy(JCam.create(sc.fc, sc.cc, sc.wh, 2, 8), "cpu")
     tr = build_pyramid(t32(scene["img_ref"]), 2, 8)
     tn = build_pyramid(t32(scene["img_new"]), 2, 8)
     X, p0 = t32(scene["X"]), torch.zeros(6)
     cfg = ICGNParams(lv_f=1, lv_l=0, maxiter=4)
-    for bad in (dict(window_cache=False), dict(gather_prefetch=True), dict(psz=6)):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            icgn.track_pose(tr, tn, X, p0, cam, dataclasses.replace(cfg, **bad))
+    # only K9's flag is still unported; the non-fused paths run
+    # (tests/test_torch_chain.py holds them against the JAX tracker)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        icgn.track_pose(tr, tn, X, p0, cam, dataclasses.replace(cfg, gather_prefetch=True))
+    exact = icgn.track_pose(tr, tn, X, p0, cam, dataclasses.replace(cfg, window_cache=False))
+    assert bool(torch.isfinite(exact).all())
     ref = icgn.track_pose(tr, tn, X, p0, cam, cfg)
     split = icgn.track_pose(tr, tn, X, p0, cam, dataclasses.replace(cfg, gather_split=True))
     torch.testing.assert_close(split, ref, rtol=0, atol=0)
@@ -155,7 +158,7 @@ def test_bf16_storage_and_verbose_iterations(scene, capsys):
     Hessian stays float32): the pose moves by far less than the
     tracker's accuracy.  verbosity 2 prints one line per iteration run."""
     sc = scene["sc"]
-    cam = convert.camera_from_numpy(JCam.create(sc.fc, sc.cc, sc.wh, 2, 8))
+    cam = convert.camera_from_numpy(JCam.create(sc.fc, sc.cc, sc.wh, 2, 8), "cpu")
     tr = build_pyramid(t32(scene["img_ref"]), 2, 8)
     tn = build_pyramid(t32(scene["img_new"]), 2, 8)
     cfg = ICGNParams(lv_f=1, lv_l=0, maxiter=10)

@@ -49,7 +49,7 @@ def test_build_pyramid_matches_jax(wh, atol):
     pyr_j = jbuild(jnp.asarray(img), 4, PAD)
     pyr = build_pyramid(t32(img), 4, PAD)
     conv = convert.pyramid_from_numpy(
-        [tuple(np.asarray(a) for a in lvl) for lvl in pyr_j])
+        [tuple(np.asarray(a) for a in lvl) for lvl in pyr_j], "cpu")
     for lj, lt, lc in zip(pyr_j, pyr, conv):
         for a, b, c in zip(lj, lt, lc):
             np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0, atol=atol)

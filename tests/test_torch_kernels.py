@@ -48,7 +48,8 @@ def k1_case():
     rng = np.random.default_rng(4)
     _, _, img_ref, img_new, _ = make_pair(rng, 4, wh=(128, 96))
     jr, jn = jbuild(jnp.asarray(img_ref), 2, PAD)[1], jbuild(jnp.asarray(img_new), 2, PAD)[1]
-    tr, tn = convert.pyramid_from_numpy([[np.asarray(a) for a in lvl] for lvl in (jr, jn)])
+    tr, tn = convert.pyramid_from_numpy([[np.asarray(a) for a in lvl] for lvl in (jr, jn)],
+                                        "cpu")
     w, h = 64.0, 48.0
     interior = np.c_[rng.uniform(6, w - 6, N_INTERIOR), rng.uniform(6, h - 6, N_INTERIOR)]
     border = np.array([[w, h], [0.2, h], [w, 20.5], [13.7, h], [0.0, 0.0],
