@@ -18,7 +18,7 @@ constexpr int kNpix = kPsz * kPsz;  // pixels per patch
 constexpr int kWarpsPerBlock = 8;   // one point per warp
 
 // patch[r,c] = w00 S[r+1,c+1] + w01 S[r+1,c] + w10 S[r,c+1] + w11 S[r,c],
-// summed left to right as image/patch.py::combine does.
+// summed left to right as image/taps.py::combine does.
 __device__ __forceinline__ float tap(float4 w, float s11, float s10,
                                      float s01, float s00) {
   float acc = __fmul_rn(w.x, s11);

@@ -12,7 +12,7 @@
 Each wrapper launches its CUDA kernel (``csrc/patch_gather.cu``) on CUDA
 tensors and its plain version (``*_plain``) on CPU tensors.  Both take
 their indices and weights from the same torch code
-(``image/patch.py::bilinear_base``, ``clamp_to_fit``), and both move a
+(``image/taps.py::bilinear_base``, ``clamp_to_fit``), and both move a
 support or window that would leave the plane back inside it (the
 ``dynamic_slice`` rule of the JAX package's XLA twins, which the TPU
 kernels do not follow at the frustum border).  The patch mean, when
@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from invcompcamtrack_torch.image.patch import (
+from invcompcamtrack_torch.image.taps import (
     bilinear_base,
     clamp_to_fit,
     combine,

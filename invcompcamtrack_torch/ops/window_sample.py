@@ -3,7 +3,7 @@
 
 Once per scale the tracker caches a ``(win, win)`` window of the query
 image per point; every GN iteration then resamples the ``(psz, psz)``
-patch from that window.  The tap math is ``image/patch.py``'s
+patch from that window.  The tap math is ``image/taps.py``'s
 (``bilinear_base``, ``combine``); the integer offset of the tap support
 inside the window is clamped to ``[0, win - psz - 1]``.
 
@@ -22,7 +22,8 @@ from __future__ import annotations
 
 import torch
 
-from invcompcamtrack_torch.image.patch import bilinear_base, combine
+from invcompcamtrack_torch.image.taps import bilinear_base, combine
+from invcompcamtrack_torch.ops import patch_gather
 
 
 def window_origin(centers: torch.Tensor, psz: int, win: int,
@@ -53,7 +54,7 @@ def resample_windows(windows: torch.Tensor, row_w: torch.Tensor,
                      col_w: torch.Tensor, wts: torch.Tensor,
                      psz: int) -> torch.Tensor:
     """windows (M, win, win), offsets (M,), weights (M, 4) -> the 4-tap
-    patches (M, psz, psz), summed as ``image/patch.py`` sums them."""
+    patches (M, psz, psz), summed as ``image/taps.py`` sums them."""
     M = windows.shape[0]
     ar = torch.arange(psz + 1, device=windows.device)
     rows = row_w.long()[:, None] + ar
@@ -84,6 +85,4 @@ def gather_windows_any(img: torch.Tensor, origins: torch.Tensor,
     (..., 2) int32.  A window that would leave the image is moved back
     inside it (the ``dynamic_slice`` rule of the JAX package's XLA
     path).  K7 on a CUDA tensor, its plain version on a CPU tensor."""
-    from invcompcamtrack_torch.ops import patch_gather
-
     return patch_gather.gather_windows(img, origins, win, win)

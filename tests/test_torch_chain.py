@@ -37,8 +37,8 @@ from invcompcamtrack_tpu.vo import synthetic
 from invcompcamtrack_torch import convert
 from invcompcamtrack_torch.core import lie
 from invcompcamtrack_torch.core import pose as pose_ops
-from invcompcamtrack_torch.image.patch import bilinear_base, clamp_to_fit
 from invcompcamtrack_torch.image.pyramid import build_pyramid
+from invcompcamtrack_torch.image.taps import bilinear_base, clamp_to_fit
 from invcompcamtrack_torch.ops import ncc3
 from invcompcamtrack_torch.solver import chain, icgn
 from tests.oracles import geometry_np as geo

@@ -15,7 +15,7 @@ Tolerances (kernel vs plain version, same inputs, both on the card):
   butterfly: 1e-5 of sum |p_d * pdiff|.  K3: exact without the mean,
   4e-5 (about 1 ulp of intensities below 256) with it.
 - K5, K6: the plain version's float operations in its order; K7: a
-  copy.  Bit-exact, at psz 8, 6 and 16, border centers included.
+  copy.  Bit-exact, at psz 8, 4, 6 and 16, border centers included.
 - K4: three butterfly sums per patch and one division: 2e-5 of
   sum|p_a p_b| / (n_a n_b), plus 8 MEAN_EPS (1/n_a + 1/n_b) for the
   other summation order of the patch mean (MEAN_EPS = 6.2e-5, 2 ulp of
@@ -30,12 +30,14 @@ import pytest
 import torch
 
 from invcompcamtrack_torch import ICGNParams, synthetic
+from invcompcamtrack_torch.cli import track_pair
 from invcompcamtrack_torch.core import lie
 from invcompcamtrack_torch.core.camera import CameraPyramid
 from invcompcamtrack_torch.image.pyramid import PyramidLevel, build_pyramid
 from invcompcamtrack_torch.ops import icgn_iter, ncc3, patch_gather
 from invcompcamtrack_torch.ops import window_sample as ws
 from invcompcamtrack_torch.solver import chain, icgn
+from invcompcamtrack_torch.utils import io
 
 torch.set_num_threads(1)  # tier-1 runs several xdist workers on a few cores
 pytestmark = pytest.mark.requires_cuda
@@ -161,7 +163,7 @@ def test_track_pose_batch_on_card_matches_cpu(pair, cuda_device):
     torch.testing.assert_close(out["cuda"], out["cpu"], rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("psz", [8, 6, 16])
+@pytest.mark.parametrize("psz", [8, 4, 6, 16])
 def test_k5_k6_k7_kernels_match_plain(pair, cuda_device, psz):
     _, _, img_ref, _, _ = pair
     lvl = build_pyramid(t32(img_ref, cuda_device), 2, psz)[1]
@@ -276,3 +278,27 @@ def test_track_nposes_on_card_matches_cpu(pair, cuda_device):
     assert bool(((a.correlations.cpu() == -1) == (b.correlations == -1))[:3].all())
     torch.testing.assert_close(a.correlations[:3].cpu(), b.correlations[:3], rtol=0, atol=5e-3)
     assert int(chain.select_best(a, torch.ones(4, dtype=torch.bool, device=cuda_device))[0]) < 3
+
+
+@pytest.mark.parametrize("psz,want", [
+    (8, dict(gather_ref_grad_windows=2, project=20)),
+    (4, dict(gather_patches_grad=2, gather_windows=2)),
+], ids=["psz8", "psz4"])
+def test_cli_track_pair_run_on_card_matches_cpu(pair, cuda_device, psz, want):
+    """The pair tracker's ``run`` (it asks the tracker for its aux: the
+    Hessian's map-back through ``jacfwd``) on the card by default."""
+    sc, p_gt, img_ref, img_new, X = pair
+    data = io.PointCamFile(pose=np.zeros(6), fc=np.asarray(sc.fc, np.float32),
+                           cc=np.asarray(sc.cc, np.float32),
+                           wh=np.asarray(sc.wh, np.uint32), pt3d=X.astype(np.float64),
+                           pt2d=np.zeros((len(X), 2), np.float32))
+    cfg = track_pair.parse_cfg(["1", "0", str(psz), "10", "0.01", "1", "0", "32", "0"])
+    counts = (patch_gather.launches, icgn_iter.launches)
+    n0 = {k: v for c in counts for k, v in c.items()}
+    on_card = track_pair.run(cfg, data, [img_ref, img_new])
+    launched = {k: v - n0[k] for c in counts for k, v in c.items() if v != n0[k]}
+    assert launched == want
+    on_cpu = track_pair.run(cfg, data, [img_ref, img_new], device="cpu")
+    assert on_card.shape == (6,) and on_card.dtype == np.float64
+    np.testing.assert_allclose(on_card, on_cpu, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(on_card, p_gt, rtol=0, atol=5e-3)
