@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``invcompcamtrack_torch/csrc``, holds
 each against its plain PyTorch version at the main paths' shapes, and
-drives four paths, each with the launch counts set to 0 just before it
+drives five paths, each with the launch counts set to 0 just before it
 and read just after:
 
 1. the batched IC-GN tracker ``track_pose_batch`` at the shape of
@@ -19,7 +19,17 @@ and read just after:
    K7 x 5) and psz 8 with ``window_cache=False`` (K6 x 5, K5 x 50);
 4. the pair tracker through its CLI's ``run`` (one problem of N=100
    points, input through the reference's point+camera file) at psz 8
-   (K1 x 5, K2 x 50) and psz 4 (K6 x 5, K7 x 5).
+   (K1 x 5, K2 x 50) and psz 4 (K6 x 5, K7 x 5);
+5. the optical-flow point tracker (the loop of
+   ``examples/run_of_point_track.py``) on a 6-frame 1280x720 clip: 5-level
+   pyramids, dense LK flow forward and backward (K8 x 40 per frame
+   pair), 1000 Shi-Tomasi corners, the track table; then sparse LK with
+   the forward/backward gate at those corners (K6 x 10 and K7 x 10, or
+   K6 x 10 and K5 x 80 without the window cache), the flow-quality
+   benchmark's ``evaluate_pair`` on one 640x480 pair at patch side 32
+   (K8 x 16, K5 x 4), and the tracker of path 1 with
+   ``gather_prefetch=True`` (K9 x 5, K1 x 0, K2 x 50), whose poses must
+   equal path 1's bit for bit.
 
 It checks that each path went through its kernels and solved its
 problem, compares the card with the port's CPU run, then times the paths
@@ -31,6 +41,7 @@ fails.  The last line is one JSON object naming the device.
 """
 
 import contextlib
+import dataclasses
 import importlib.util
 import io as io_module
 import json
@@ -57,6 +68,31 @@ PEAK_F32_FLOPS = 67e12
 # intensities < 256.
 K1_TOL = 1e-4
 GATHER_TOL = 0.0
+# K8 performs the plain version's float operations in its order through
+# the _rn intrinsics: bit-exact, NaN pixels at the same places.  K9 runs
+# K1's device functions on the same floats: equal to K1 bit for bit.
+WARP_TOL = 0.0
+PREFETCH_TOL = 0.0
+# Dense LK flow, card vs the port's CPU run of one 1280x720 pair: the box
+# convolutions sum 81 products, and a pixel whose 2x2 determinant is small
+# amplifies a last-bit difference through five levels of four iterations.
+# Measured on an H100 (torch 2.11, CUDA 12.8): 0.0 at every pixel, the
+# card's and the CPU's convolutions summing in one order; another cuDNN
+# algorithm need not, so the limits are those of two float32 runs of the
+# same flow (the CPU tests measure 1e-5 px between the port and the JAX
+# package): the median pixel within FLOW_MEDIAN_TOL px, 99.9 % of the
+# pixels within FLOW_TOL px.
+FLOW_TOL = 1e-3
+FLOW_MEDIAN_TOL = 1e-5
+# The point tracker's checks: the forward flow's median endpoint error
+# against the plane's analytic flow; the share of the tracks seeded on
+# the first pair that give a verified pair on the second (the gate asks
+# a forward/backward error under a fifth of a ~1.5 px step of a flow
+# whose median error is ~0.45 px: just under half pass on the CPU); the
+# verified pairs' median step against the analytic flow there.
+EPE_LIMIT = 1.0
+PAIRS_SHARE = 1.0 / 3.0
+STEP_TOL = 0.5
 # K2 sums the 64 pixels of the mean and of (gx, gy) in a warp butterfly:
 # the gap is relative to the magnitudes summed.
 K2_RTOL = 1e-5
@@ -131,11 +167,28 @@ def cuda_ms(torch, fn, reps=10, warmup=3):
     return statistics.median(times)
 
 
-def device_ms(torch, fn, reps=10, what=""):
+PROFILE_PAD = 256
+
+
+def device_ms(torch, fn, reps=10, what="", per_call=None, top=0):
     """The card's busy time for one call (ms; every device op that the
-    profiler records, summed over ``reps`` calls / reps), the number of
+    profiler records, summed over the calls / their number), the number of
     device ops per call, and the ms per call of the port's own kernels by
-    name (the ``icgn::`` kernels of ``csrc/``)."""
+    name (the ``icgn::`` kernels of ``csrc/``).
+
+    A profile of a few short calls can come back without some or all of
+    their device events, and with one stale event of the profile before it
+    (seen on an H100, in a process that had taken profiles of tens of
+    thousands of events: a profile of 5 launches gave 0 to 4 of them, one of
+    170 all of them; the first launch of a profile can go missing too).  So
+    the calls stand between throw-away spin kernels, a few before them and
+    PROFILE_PAD after them, which take the losses at both ends (the stale
+    event is then one of them) and are left out by name.
+    Where the caller states how many device ops of a name one call launches
+    (``per_call``: a part of the name and the number, ``("icgn::", 1)`` for
+    one kernel of ``csrc/``, ``("", 1)`` for a call that is one op), the
+    calls are counted from those events and not taken from ``reps``.  ``top`` prints that many device ops by
+    their share of the busy time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -144,22 +197,47 @@ def device_ms(torch, fn, reps=10, what=""):
     # eight runs on an H100: it is then taken again, at most twice)
     for attempt in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(8):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(0.001)
             for _ in range(reps):
                 fn()
+            for _ in range(PROFILE_PAD):
+                torch.cuda._sleep(1)
             torch.cuda.synchronize()
-        ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        if ops:
+        events = list(prof.events())
+        ops = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and "spin_kernel" not in e.name]
+        # (every call launches the same ops: a count that the calls do not
+        # divide means that the profile missed some)
+        if ops and len(ops) % reps == 0:
             break
-        print(f"torch.profiler recorded no device event for {what} "
-              f"({len(list(prof.events()))} events in all), attempt {attempt + 1}")
+        print(f"torch.profiler recorded {len(ops)} device events for {reps} calls of "
+              f"{what} ({len(events)} events in all), attempt {attempt + 1}")
     check(len(ops) > 0, f"torch.profiler recorded no device time for {what}")
-    busy_us = sum(e.time_range.elapsed_us() for e in ops)
-    own = {}
+    calls = reps
+    if per_call:
+        part, per = per_call
+        n_named = sum(1 for e in ops if part in e.name)
+        check(n_named >= per, f"torch.profiler recorded no '{part}' op for {what}")
+        calls = n_named / per
+        if calls != reps:
+            print(f"torch.profiler recorded {calls:g} of the {reps} calls of {what}")
+    own, by_name = {}, {}
     for e in ops:
+        ms = e.time_range.elapsed_us() / calls / 1e3
+        by_name[e.name] = by_name.get(e.name, 0.0) + ms
         if "icgn::" in e.name:
             kernel = e.name.split("icgn::")[1].split("(")[0].split("<")[0]
-            own[kernel] = own.get(kernel, 0.0) + e.time_range.elapsed_us() / reps / 1e3
-    return busy_us / reps / 1e3, len(ops) / reps, own
+            own[kernel] = own.get(kernel, 0.0) + ms
+    busy_ms = sum(by_name.values())
+    if top:
+        ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+        print(f"{what}: device ops by time: " + "; ".join(
+            f"{name.split('(')[0][-60:]} {ms:.3f} ms ({ms / busy_ms:.1%})"
+            for name, ms in ranked))
+    return busy_ms, len(ops) / calls, own
 
 
 def bound(bytes_moved: float, flops: float):
@@ -224,14 +302,16 @@ def main() -> None:
     t_start = time.perf_counter()
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import invcompcamtrack_torch  # noqa: F401  (sets TF32 off)
-    from invcompcamtrack_torch import ICGNParams, convert
+    from invcompcamtrack_torch import ICGNParams, convert, synthetic
     from invcompcamtrack_torch.cli import track_nposes as cli_nposes
     from invcompcamtrack_torch.cli import track_pair as cli_pair
     from invcompcamtrack_torch.core import lie
     from invcompcamtrack_torch.core.camera import CameraPyramid
     from invcompcamtrack_torch.device import default_device
     from invcompcamtrack_torch.image.pyramid import build_pyramid
-    from invcompcamtrack_torch.ops import _build, icgn_iter, ncc3, patch_gather
+    from invcompcamtrack_torch.match import dense_flow, features, flow_bench, lk, track
+    from invcompcamtrack_torch.ops import (_build, icgn_iter, ncc3, patch_gather,
+                                           patch_prefetch, warp)
     from invcompcamtrack_torch.ops import window_sample as ws
     from invcompcamtrack_torch.solver import chain
     from invcompcamtrack_torch.solver.icgn import track_pose, track_pose_batch
@@ -280,7 +360,7 @@ def main() -> None:
         return uv
 
     # ---- phase 2: K1 vs its plain version, all 5 levels, 25,600 points
-    k1_err = 0.0
+    k1_err = k9_err = 0.0
     k1_in = {}
     for s in range(cfg.num_levels):
         uv = level_uv(s)
@@ -290,17 +370,25 @@ def main() -> None:
                                                    origins, psz, pad, win)
         want = patch_gather.gather_ref_grad_windows_plain(pyr_ref[s], pyr_new[s].img,
                                                           uv, origins, psz, pad, win)
+        got9 = patch_prefetch.gather_ref_grad_windows_prefetch(
+            pyr_ref[s], pyr_new[s].img, uv, origins, psz, pad, win)
         torch.cuda.synchronize()
-        for name, g, w in zip(("p_img", "p_dx", "p_dy", "qwin"), got, want):
+        for name, g, w, g9 in zip(("p_img", "p_dx", "p_dy", "qwin"), got, want, got9):
             err = float((g - w).abs().max())
             check(err <= (0.0 if name == "qwin" else K1_TOL),
                   f"K1 level {s} {name}: max abs err {err}")
             k1_err = max(k1_err, err)
+            err9 = max(float((g9 - g).abs().max()), float((g9 - w).abs().max()))
+            check(err9 <= PREFETCH_TOL, f"K9 level {s} {name}: differs from K1 or from "
+                  f"its plain version by {err9} (expected bit-exact)")
+            k9_err = max(k9_err, err9)
         if s == 0:
             k1_in = dict(level=pyr_ref[0], qimg=pyr_new[0].img, uv=uv,
                          origins=origins, out=got)
     print(f"K1 vs plain: 5 levels x {M} points (8 on the border each), "
           f"max abs err {k1_err} (tol {K1_TOL}, windows exact)")
+    print(f"K9 vs K1 and vs plain: the same 5 levels x {M} points, max abs err {k9_err} "
+          f"(tol {PREFETCH_TOL})")
 
     # ---- phase 3: K2 / K3 vs plain at 25,600 points, f32 and bf16 storage
     p_img, p_dx, p_dy, qwin = k1_in["out"]
@@ -389,14 +477,71 @@ def main() -> None:
         w7 = patch_gather.gather_windows_plain(lvl.img, origins_q, q + 8, q + 8)
         gather_err["K7"] = max(gather_err["K7"], float((g7 - w7).abs().max()))
         gather_in[q] = dict(lvl=lvl, origins=origins_q, windows=w7)
+    # K5 at the patch sides of the descriptors (18) and of the flow
+    # benchmark (32), which its unstaged variant serves
+    for q in (18, 32):
+        lvl = build_pyramid(convert.tensor_from_numpy(img_ref), 1, q)[0]
+        for pn in (False, True):
+            g5 = patch_gather.gather_patches(lvl.img, uv0, q, q, pn)
+            w5 = patch_gather.gather_patches_plain(lvl.img, uv0, q, q, pn)
+            gather_err["K5"] = max(gather_err["K5"], float((g5 - w5).abs().max()))
+        del g5, w5
     torch.cuda.synchronize()
     for k, err in gather_err.items():
         check(err <= GATHER_TOL, f"{k} vs plain: max abs err {err} (expected bit-exact)")
-    print(f"K5, K6, K7 vs plain: {M} points, psz 8, 4 (pad 4, 12x12 windows) and 6, with "
-          f"and without the patch mean, max abs err {gather_err} (tol {GATHER_TOL})")
+    print(f"K5, K6, K7 vs plain: {M} points, psz 8, 4 (pad 4, 12x12 windows) and 6, K5 "
+          f"also at psz 18 and 32, with and without the patch mean, max abs err "
+          f"{gather_err} (tol {GATHER_TOL})")
+
+    # ---- phase 3c: K8 vs its plain version at 1280x720 and at the
+    # coarsest level's 45x80: (a) a smooth flow, (b) a 10 px step across
+    # an (8, 128) tile, where the TPU kernel clamps, (c) flow that leaves
+    # the image on every side, (d) integer flow, (e) infinite and NaN flow
+    def test_flows(H, W):
+        yy, xx = torch.meshgrid(torch.arange(H, device=dev, dtype=torch.float32),
+                                torch.arange(W, device=dev, dtype=torch.float32),
+                                indexing="ij")
+        smooth = torch.stack([1.3 * torch.sin(yy / 17.0) + 0.7 * torch.cos(xx / 43.0) + 4.0,
+                              1.1 * torch.cos(yy / 13.0) - 0.9 * torch.sin(xx / 39.0) - 6.0],
+                             dim=-1)
+        step = smooth.clone()
+        step[:, W // 2 + 5:, 0] += 10.0
+        leaves = smooth.clone()
+        leaves[:6] -= 40.0
+        leaves[-6:] += 55.0
+        leaves[:, :5, 0] -= 300.0
+        leaves[:, -5:, 0] += 1e6
+        integer = torch.zeros_like(smooth)
+        integer[..., 0], integer[..., 1] = 3.0, -2.0
+        nonfinite = smooth.clone()
+        nonfinite[3, 4, 0] = float("inf")
+        nonfinite[5, 6, 1] = float("-inf")
+        nonfinite[7, 8, 0] = float("nan")
+        return dict(smooth=smooth, step=step, leaves=leaves, integer=integer,
+                    nonfinite=nonfinite)
+
+    k8_err = 0.0
+    for s_lvl in (0, cfg.lv_f):
+        plane = pyr_new[s_lvl].img[pad:-pad, pad:-pad]
+        Hs, Ws = plane.shape
+        for kind, fl in test_flows(Hs, Ws).items():
+            g8 = warp.warp_image(plane, fl)
+            w8 = warp.warp_image_plain(plane, fl)
+            check(bool(torch.equal(torch.isnan(g8), torch.isnan(w8))),
+                  f"K8 {Hs}x{Ws} {kind}: NaN pixels differ")
+            check(int(torch.isnan(w8).sum()) == (1 if kind == "nonfinite" else 0),
+                  f"K8 {Hs}x{Ws} {kind}: unexpected NaN pixels")
+            err = float(torch.nan_to_num(g8 - w8, nan=0.0).abs().max())
+            check(err <= WARP_TOL, f"K8 {Hs}x{Ws} {kind}: max abs err {err} "
+                  f"(expected bit-exact)")
+            k8_err = max(k8_err, err)
+    torch.cuda.synchronize()
+    print(f"K8 vs plain: 720x1280 and {Hs}x{Ws}, smooth / step / leaving the image / "
+          f"integer / non-finite flow, max abs err {k8_err} (tol {WARP_TOL})")
 
     # ---- phase 4: main path 1, counts set to 0 just before it
-    all_counts = (patch_gather.launches, icgn_iter.launches, ncc3.launches)
+    all_counts = (patch_gather.launches, icgn_iter.launches, ncc3.launches,
+                  warp.launches, patch_prefetch.launches)
 
     def read_counts():
         return {"K1": patch_gather.launches["gather_ref_grad_windows"],
@@ -404,7 +549,9 @@ def main() -> None:
                 "K4": ncc3.launches["ncc3_scores"],
                 "K5": patch_gather.launches["gather_patches"],
                 "K6": patch_gather.launches["gather_patches_grad"],
-                "K7": patch_gather.launches["gather_windows"]}
+                "K7": patch_gather.launches["gather_windows"],
+                "K8": warp.launches["warp_image"],
+                "K9": patch_prefetch.launches["gather_ref_grad_windows_prefetch"]}
 
     def expect_counts(path, got, want):
         print(f"{path} launches: {got}")
@@ -658,6 +805,168 @@ def main() -> None:
         pair_out[name] = {"launches": pair_launches, "center_err": pair_center,
                           "cpu_pose_err": pair_gap}
 
+    # ---- phase 4e: main path 5a, the optical-flow point tracker: the loop
+    # of examples/run_of_point_track.py on a 6-frame clip of the tracker's
+    # scene at 1280x720 with the example's pose steps
+    FL, fpad, f_iters, n_corners, n_frames = 5, 8, 4, 1000, 6
+    rng_clip = np.random.default_rng(SEED + 3)
+    p_clip, clip, clip_G = np.zeros(6), [], []
+    for _ in range(n_frames):
+        clip_G.append(lie.se3_exp(torch.tensor(p_clip, dtype=torch.float64)).numpy())
+        clip.append(synthetic.render(scene, clip_G[-1]).astype(np.float32))
+        p_clip = p_clip + np.r_[0.01, 0.004, 0.004, rng_clip.normal(size=3) * 0.001]
+    Hc, Wc = clip[0].shape
+
+    def flow_pair(pa, pb):
+        return (dense_flow.dense_flow_lk(pa, pb, fpad, iters=f_iters, radius=4),
+                dense_flow.dense_flow_lk(pb, pa, fpad, iters=f_iters, radius=4))
+
+    def corners_of(pyr):
+        return features.shi_tomasi_corners(pyr[0].img[fpad:-fpad, fpad:-fpad],
+                                           max_corners=n_corners, border=fpad)
+
+    def in_frame(gt):
+        yy, xx = np.mgrid[0:Hc, 0:Wc]
+        tx, ty = xx + gt[..., 0], yy + gt[..., 1]
+        return (tx >= 0) & (tx < Wc) & (ty >= 0) & (ty < Hc)
+
+    clip_pyrs = [build_pyramid(convert.tensor_from_numpy(f), FL, fpad) for f in clip]
+    table = track.make_track_table(n_corners, window=6)
+    check(table.xy.device.type == dev.type, "make_track_table did not default to the card")
+    track_rows, flow_01, corners_1 = [], None, None
+    for i in range(n_frames - 1):
+        reset(*all_counts)
+        flow_f, flow_b = flow_pair(clip_pyrs[i], clip_pyrs[i + 1])
+        xy_c, ok_c = corners_of(clip_pyrs[i + 1])
+        seeded_before = int(table.alive.sum())
+        table = track.advance_tracks(table, flow_f, flow_b, xy_c, ok_c)
+        pairs_t, pairs_ok = track.point_pairs(table)
+        torch.cuda.synchronize()
+        pt_launches = read_counts()
+        expect_counts(f"point tracker, frame pair {i}", pt_launches,
+                      {"K8": 2 * FL * f_iters})
+        check(tuple(flow_f.shape) == (Hc, Wc, 2) and bool(torch.isfinite(flow_f).all())
+              and bool(torch.isfinite(flow_b).all()), f"frame pair {i}: bad flow")
+        gt = flow_bench.plane_gt_flow(scene, clip_G[i], clip_G[i + 1])
+        epe = np.linalg.norm(flow_f.cpu().numpy() - gt, axis=-1)
+        med_epe = float(np.median(epe[in_frame(gt)]))
+        check(med_epe < EPE_LIMIT, f"frame pair {i}: median EPE {med_epe} px")
+        n_pairs = int(pairs_ok.sum())
+        row = {"median_epe": med_epe, "corners": int(ok_c.sum()),
+               "live": int(table.alive.sum()), "pairs": n_pairs}
+        if n_pairs:
+            prev = pairs_t[pairs_ok][:, 0].cpu().numpy()
+            step = pairs_t[pairs_ok][:, 1].cpu().numpy() - prev
+            gt_at = gt[np.round(prev[:, 1]).astype(int), np.round(prev[:, 0]).astype(int)]
+            row["median_step"] = float(np.median(np.linalg.norm(step, axis=1)))
+            row["median_step_err"] = float(np.median(np.linalg.norm(step - gt_at, axis=1)))
+            check(row["median_step_err"] < STEP_TOL, f"frame pair {i}: verified pairs "
+                  f"miss the analytic flow by {row['median_step_err']} px at the median")
+        if i == 0:
+            flow_01, corners_1 = flow_f, (xy_c, ok_c)
+            check(n_pairs == 0 and row["live"] == row["corners"] >= n_corners // 2,
+                  f"frame pair 0: {row}")
+        if i == 1:
+            check(n_pairs >= PAIRS_SHARE * seeded_before, f"frame pair 1: {n_pairs} "
+                  f"verified pairs of {seeded_before} seeded tracks")
+        track_rows.append(row)
+        print(f"point tracker, frame pair {i}: {row}")
+    check(int(table.frame) == n_frames - 1, "the track table lost count of its frames")
+
+    # the forward flow of pair 0 on the card vs the port's CPU run
+    cpu_flow = dense_flow.dense_flow_lk(build_pyramid(torch.from_numpy(clip[0]), FL, fpad),
+                                        build_pyramid(torch.from_numpy(clip[1]), FL, fpad),
+                                        fpad, iters=f_iters, radius=4)
+    flow_gap = (flow_01.cpu() - cpu_flow).abs().amax(-1).flatten()
+    flow_gap_999 = float(torch.quantile(flow_gap[::7], 0.999))
+    print(f"dense flow, card vs CPU, one {Wc}x{Hc} pair: median {float(flow_gap.median())} "
+          f"px (tol {FLOW_MEDIAN_TOL}), 99.9 % within {flow_gap_999} px (tol {FLOW_TOL}), "
+          f"max {float(flow_gap.max())} px")
+    check(float(flow_gap.median()) <= FLOW_MEDIAN_TOL and flow_gap_999 <= FLOW_TOL,
+          "dense flow: card vs CPU out of tolerance")
+
+    # ---- phase 4f: main path 5b, sparse LK with the forward/backward gate
+    # on the clip's first pair, psz 8, at the 1000 corners of frame 0 and at
+    # 1000 seeded random points.  (The corners of this sum-of-sinusoids
+    # texture sit on its finest detail, where the coarse levels carry no
+    # signal and the finest level under-shoots a ~2.5 px step: the gate
+    # rejects most of them, which is what it is for; the random points are
+    # the accuracy check.)
+    lk_pyrs = [build_pyramid(convert.tensor_from_numpy(f), FL, psz) for f in clip[:2]]
+    xy_0, ok_0 = corners_of(clip_pyrs[0])
+    rng_lk = np.random.default_rng(SEED + 5)
+    xy_r = on_card(np.c_[rng_lk.uniform(20, Wc - 20, n_corners),
+                         rng_lk.uniform(20, Hc - 20, n_corners)])
+    gt01 = flow_bench.plane_gt_flow(scene, clip_G[0], clip_G[1])
+    lk_out, lk_xy = {}, {}
+    for pts_name, pts, ok_pts, min_share in (
+            ("corners", xy_0, ok_0, 0.03),
+            ("random", xy_r, torch.ones(n_corners, dtype=torch.bool, device=dev), 0.9)):
+        for name, kw, want in (("cache", {}, {"K6": 2 * FL, "K7": 2 * FL}),
+                               ("nocache", {"window_cache": False},
+                                {"K6": 2 * FL, "K5": 2 * FL * 8})):
+            reset(*all_counts)
+            xy_b, ok_b = lk.lk_forward_backward(lk_pyrs[0], lk_pyrs[1], pts, **kw)
+            torch.cuda.synchronize()
+            expect_counts(f"sparse LK ({pts_name}, {name})", read_counts(), want)
+            lk_xy[pts_name, name] = (xy_b.cpu(), ok_b.cpu())
+            keep = (ok_b & ok_pts).cpu().numpy()
+            at = pts.cpu().numpy()[keep]
+            moved = xy_b.cpu().numpy()[keep] - at
+            lk_err = np.linalg.norm(
+                moved - gt01[at[:, 1].astype(int), at[:, 0].astype(int)], axis=1)
+            row = {"verified": int(keep.sum()), "of": int(ok_pts.sum()),
+                   "median_err": float(np.median(lk_err))}
+            lk_out[f"{pts_name}_{name}"] = row
+            print(f"sparse LK ({pts_name}, {name}): {row}")
+            check(row["verified"] >= min_share * row["of"] and row["median_err"] < STEP_TOL,
+                  f"sparse LK ({pts_name}, {name}): {row}")
+    lk_cpu = lk.lk_forward_backward(
+        *(build_pyramid(torch.from_numpy(f), FL, psz) for f in clip[:2]), xy_r.cpu())
+    both = lk_cpu[1] & lk_xy["random", "cache"][1]
+    lk_gap = float((lk_cpu[0] - lk_xy["random", "cache"][0]).abs().amax(-1)[both].median())
+    lk_out["cpu_median_gap"] = lk_gap
+    print(f"sparse LK (random, cache), card vs CPU: median gap {lk_gap} px over "
+          f"{int(both.sum())} points verified by both (limit 1e-3)")
+    check(lk_gap <= 1e-3 and int(both.sum()) >= 0.9 * n_corners,
+          f"sparse LK: card vs CPU median gap {lk_gap} over {int(both.sum())} points")
+
+    # ---- phase 4g: main path 5c, the flow-quality benchmark's evaluate_pair
+    # on one 640x480 pair (run_benchmark's size) at patch side 32
+    rng_b = np.random.default_rng(SEED + 4)
+    wh_b = (640, 480)
+    scene_b = synthetic.make_scene(rng_b, wh=wh_b, fc=(0.9 * wh_b[0], 0.95 * wh_b[0]),
+                                   freq_range=(0.3, 4.0))
+    m_b = 0.19      # the second of run_benchmark's six pose steps
+    G_b = [lie.se3_exp(torch.tensor(q, dtype=torch.float64)).numpy()
+           for q in (np.zeros(6), np.r_[m_b * 0.8, m_b * 0.35, m_b * 0.1, 0.004 * m_b,
+                                        0.006 * m_b, 0.003 * m_b])]
+    imgs_b = [synthetic.render(scene_b, G) for G in G_b]
+    reset(*all_counts)
+    bench_row = flow_bench.evaluate_pair(scene_b, G_b[0], G_b[1], *imgs_b)
+    torch.cuda.synchronize()
+    expect_counts("flow benchmark (evaluate_pair, psz 32)", read_counts(),
+                  {"K8": 4 * 4, "K5": 4})
+    bench_epe = {k: bench_row[k]["all"] for k in ("lk", "ncc", "mosse")}
+    print(f"flow benchmark, one {wh_b[0]}x{wh_b[1]} pair, mean GT flow "
+          f"{bench_row['gt_mag_mean']:.2f} px: EPE {bench_epe}")
+    check(all(np.isfinite(v) for v in bench_epe.values()), "flow benchmark: non-finite EPE")
+    check(bench_epe["ncc"] <= 1.5 * bench_epe["lk"] and bench_epe["mosse"] <= 1.5 * bench_epe["lk"],
+          f"flow benchmark: a refinement is worse than 1.5 x its seed: {bench_epe}")
+
+    # ---- phase 4h: main path 5d, the tracker of path 1 with the dual
+    # gather through K9
+    cfg9 = dataclasses.replace(cfg, gather_prefetch=True)
+    reset(*all_counts)
+    p_out9 = track_pose_batch(pyr_ref, pyr_new, Xd, p0, cam, cfg9)
+    torch.cuda.synchronize()
+    pre_launches = read_counts()
+    expect_counts("tracker with gather_prefetch=True", pre_launches,
+                  {"K9": cfg.num_levels, "K2": cfg.num_levels * cfg.maxiter})
+    check(bool(torch.equal(p_out9, p_out)), "gather_prefetch=True: poses differ from "
+          f"path 1's by {float((p_out9 - p_out).abs().max())} (expected bit for bit)")
+    print("tracker with gather_prefetch=True: poses equal path 1's bit for bit")
+
     # ---- phase 5: times.  "wall": median of the calls between CUDA
     # events, which for these small, host-launched calls is mostly the
     # host's launch time; "device": the card's own kernel time per call
@@ -678,6 +987,26 @@ def main() -> None:
     ver_ms = cuda_ms(torch, verifier_call, reps=5, warmup=1)
     ver_dev_ms, ver_ops, ver_own = device_ms(torch, verifier_call, reps=1, what="the verifier")
     nf_ms = {k: cuda_ms(torch, f, reps=3, warmup=1) for k, f in nf_calls.items()}
+    nf_dev = {k: device_ms(torch, f, reps=1, what=f"the non-fused tracker ({k})")[:2]
+              for k, f in nf_calls.items()}
+
+    def prefetch_call():
+        return track_pose_batch(pyr_ref, pyr_new, Xd, p0, cam, cfg9)
+
+    # the two dual gathers end to end, in turns: K1, K9, K9, K1
+    ab_ms = [cuda_ms(torch, f, reps=5, warmup=1)
+             for f in (main_call, prefetch_call, prefetch_call, main_call)]
+    _, _, pre_own = device_ms(torch, prefetch_call, reps=1, what="the prefetch tracker")
+
+    def point_tracker_call():
+        ff, fb = flow_pair(clip_pyrs[0], clip_pyrs[1])
+        xy_c, ok_c = corners_of(clip_pyrs[1])
+        return track.advance_tracks(table, ff, fb, xy_c, ok_c)
+
+    pt_ms = cuda_ms(torch, point_tracker_call, reps=5, warmup=1)
+    pt_dev_ms, pt_ops, pt_own = device_ms(torch, point_tracker_call, reps=1,
+                                          what="the point tracker", top=8)
+    k8_plane = clip_pyrs[1][0].img[fpad:-fpad, fpad:-fpad].contiguous()
 
     k1_args = (k1_in["level"], k1_in["qimg"], k1_in["uv"], k1_in["origins"], psz, pad, win)
     f32, b16 = k2_in[torch.float32], k2_in[torch.bfloat16]
@@ -704,13 +1033,17 @@ def main() -> None:
                                                               g_lvl.dy, uv0, psz, pad)),
         "K7": (lambda: patch_gather.gather_windows(w_lvl.img, w_or, win4, win4),
                lambda: patch_gather.gather_windows_plain(w_lvl.img, w_or, win4, win4)),
+        "K8": (lambda: warp.warp_image(k8_plane, flow_01),
+               lambda: warp.warp_image_plain(k8_plane, flow_01)),
+        "K9": (lambda: patch_prefetch.gather_ref_grad_windows_prefetch(*k1_args),
+               lambda: patch_prefetch.gather_ref_grad_windows_prefetch_plain(*k1_args)),
     }
     # "ms": the kernel's own time; "wrapper_ms": every device op of one
     # wrapper call (the kernel and the torch ops that prepare its indices
     # and weights); "plain_ms": every device op of the plain version
     times = {}
     for k, (kern, plain) in pairs.items():
-        wrapper_ms, _, own = device_ms(torch, kern, reps=5, what=k)
+        wrapper_ms, _, own = device_ms(torch, kern, reps=5, what=k, per_call=("icgn::", 1))
         check(len(own) == 1, f"{k}: expected one kernel of csrc/ per call, saw {own}")
         times[k] = {"ms": sum(own.values()), "wrapper_ms": wrapper_ms,
                     "plain_ms": device_ms(torch, plain, reps=5, what=k + " plain")[0],
@@ -745,7 +1078,8 @@ def main() -> None:
                       - patch_gather.gather_patches_plain(g_lvl.img, uv0, psz, pad)
                       )[plain_at].abs().max())
     check(lib_diff < 0.05, f"grid_sample is not K5's function: differs by {lib_diff}")
-    library_ms = {"K5": device_ms(torch, k5_library, reps=5, what="grid_sample")[0]}
+    library_ms = {"K5": device_ms(torch, k5_library, reps=5, what="grid_sample", per_call=("", 1))[0]}
+    # (a grid_sample call is one device op; the indexing call below is a few)
 
     # one PyTorch call that computes K7's function: advanced indexing of
     # the plane at row and column indices built outside the timed call
@@ -760,6 +1094,24 @@ def main() -> None:
     check(bool(torch.equal(k7_library(), gather_in[4]["windows"])),
           "advanced indexing is not K7's function")
     library_ms["K7"] = device_ms(torch, k7_library, reps=5, what="aten::index")[0]
+
+    # one PyTorch call that computes K8's function: grid_sample on the
+    # normalised sample positions (built outside the timed call)
+    yy8, xx8 = torch.meshgrid(torch.arange(Hc, device=dev, dtype=torch.float32),
+                              torch.arange(Wc, device=dev, dtype=torch.float32),
+                              indexing="ij")
+    grid8 = torch.stack([(xx8 + flow_01[..., 0]) / (Wc - 1) * 2 - 1,
+                         (yy8 + flow_01[..., 1]) / (Hc - 1) * 2 - 1], -1)[None].contiguous()
+    plane8 = k8_plane[None, None]
+
+    def k8_library():
+        return F.grid_sample(plane8, grid8, mode="bilinear", padding_mode="border",
+                             align_corners=True)
+
+    lib8_diff = float((k8_library()[0, 0] - warp.warp_image_plain(k8_plane, flow_01)
+                       ).abs().max())
+    check(lib8_diff < 0.05, f"grid_sample is not K8's function: differs by {lib8_diff}")
+    library_ms["K8"] = device_ms(torch, k8_library, reps=5, what="grid_sample (K8)", per_call=("", 1))[0]
 
     # bounds from this run's inputs: each input read once, each output
     # written once (float32 = 4 bytes), and the float32 operations
@@ -776,7 +1128,12 @@ def main() -> None:
         "K6": bound(plane_b + M * 8 + M * 3 * npx * 4,
                     M * (3 * npx * 7 + 2 * (psz + 1) ** 2)),
         "K7": bound(Hp4 * Wp4 * 4 + M * 8 + M * win4 * win4 * 4, 0),
+        # K8: the plane and the flow read, the plane written; ~20 float
+        # operations per pixel (two adds, two floors and clamps, the weights
+        # and the four-tap sum)
+        "K8": bound(Hc * Wc * 16, Hc * Wc * 20),
     }
+    bounds["K9"] = bounds["K1"]
 
     print(f"[{card}] main path B={B} N={N} 1280x720: wall {main_ms:.3f} ms/call "
           f"(CUDA events, median of 10) = {B / main_ms * 1e3:.1f} pairs/s; device busy "
@@ -792,12 +1149,27 @@ def main() -> None:
     for k, t in nf_ms.items():
         print(f"[{card}] non-fused tracker {k} B={B} N={N}: wall {t:.3f} ms/call "
               f"(CUDA events, median of 3) = {B / t * 1e3:.1f} pairs/s")
+    for k, (dev_ms_, ops_) in nf_dev.items():
+        print(f"[{card}] non-fused tracker {k}: device busy {dev_ms_:.3f} ms/call in "
+              f"{ops_:.0f} device ops ({dev_ms_ / nf_ms[k]:.1%} of the wall time)")
+    print(f"[{card}] tracker, dual gather K1 / K9 / K9 / K1 in turns: wall "
+          + " / ".join(f"{t:.3f}" for t in ab_ms) + " ms/call (CUDA events, median of 5); "
+          "the port's kernels with K9, device ms per call: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in sorted(pre_own.items())))
+    k8_share = pt_own.get("warp_image_kernel", 0.0) / pt_dev_ms
+    print(f"[{card}] point tracker, one {Wc}x{Hc} frame pair (flow both ways, corners, "
+          f"table): wall {pt_ms:.3f} ms (CUDA events, median of 5) = "
+          f"{1e3 / pt_ms:.2f} frame pairs/s; device busy {pt_dev_ms:.3f} ms in "
+          f"{pt_ops:.0f} device ops ({pt_dev_ms / pt_ms:.1%} of the wall time); K8 "
+          f"{pt_own.get('warp_image_kernel', 0.0):.4f} ms for its "
+          f"{pt_launches['K8']} launches ({k8_share:.1%} of the device time)")
     shapes = {k: "psz 8, level 0" for k in pairs}
     shapes["K7"] = f"{win4}x{win4} windows, level 0 padded by 4"
+    shapes["K8"] = f"{Wc}x{Hc}, the point tracker's forward flow"
     for k, t in times.items():
         b_ms, b_by = bounds[k]
         lib = library_ms.get(k)
-        print(f"[{card}] {k} at {M} points ({shapes[k]}): kernel {t['ms']:.4f} ms, wrapper's device ops "
+        print(f"[{card}] {k} ({shapes[k]}{'' if k == 'K8' else f', {M} points'}): kernel {t['ms']:.4f} ms, wrapper's device ops "
               f"{t['wrapper_ms']:.4f} ms (plain "
               f"{t['plain_ms']:.4f} ms; bound {b_ms:.4f} ms by {b_by}; library "
               f"{'none' if lib is None else f'{lib:.4f} ms'}); wall {t['wall_ms']:.4f} ms "
@@ -826,6 +1198,10 @@ def main() -> None:
               gather_err["K6"], "K6"),
         entry("K7 gather_windows", src + "patch_gather.cu", tpu + "patch_pallas.py:503",
               nf_launches["psz4"]["K7"], gather_err["K7"], "K7"),
+        entry("K8 warp_image", src + "warp.cu", tpu + "warp_pallas.py:90",
+              pt_launches["K8"], k8_err, "K8"),
+        entry("K9 gather_ref_grad_windows_prefetch", src + "patch_prefetch.cu",
+              tpu + "patch_prefetch.py:218", pre_launches["K9"], k9_err, "K9"),
     ]
     # K3 has no caller on the main paths (nor in the JAX package): it is
     # held against its plain version above and reported on its own line
@@ -849,6 +1225,20 @@ def main() -> None:
             "pairs_per_s": B / nf_ms[k] * 1e3, "median_center_err": nf_med[k],
             **nf_cmp[k]} for k in nf_cases}}))
     print(json.dumps({"pair_tracker": pair_out}))
+    print(json.dumps({"non_fused_device": {
+        k: {"device_busy_ms_per_call": v[0], "device_ops_per_call": v[1]}
+        for k, v in nf_dev.items()}}))
+    print(json.dumps({"point_tracker": {
+        "card": card, "frame_pairs_per_s": 1e3 / pt_ms, "ms_per_frame_pair": pt_ms,
+        "device_busy_ms": pt_dev_ms, "device_ops": pt_ops, "kernel_ms": pt_own,
+        "k8_share_of_device_time": k8_share, "launches": pt_launches,
+        "frame_pairs": track_rows, "flow_card_vs_cpu_median": float(flow_gap.median()),
+        "flow_card_vs_cpu_p999": flow_gap_999, "flow_card_vs_cpu_max": float(flow_gap.max())}}))
+    print(json.dumps({"sparse_lk": lk_out}))
+    print(json.dumps({"flow_bench": {"epe": bench_epe, "gt_mag_mean": bench_row["gt_mag_mean"]}}))
+    print(json.dumps({"prefetch_tracker": {
+        "launches": pre_launches, "ms_per_call_k1_k9_k9_k1": ab_ms,
+        "kernel_ms_per_call": pre_own, "poses_equal_path_1": True}}))
     print(json.dumps({"kernels_off_main_path": off_path}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,8 +1,9 @@
-"""Carry the tracker's state from the JAX package (or plain numpy) into
-the port.
+"""Carry the trackers' state from the JAX package (or plain numpy) into
+the port, and back.
 
-The tracker has no weights: its state is the pyramids, the camera, the
-world points and the poses.  These helpers take them as numpy arrays, or
+The trackers have no weights: their state is the pyramids, the camera,
+the world points, the poses and, for the optical-flow point tracker, the
+track table.  These helpers take them as numpy arrays, or
 anything ``numpy.asarray`` accepts (a JAX array included, without this
 module importing JAX), and return the port's tensors on one device: the
 card, unless the caller passes ``device="cpu"``.  The tests feed both
@@ -19,6 +20,7 @@ import torch
 from invcompcamtrack_torch.core.camera import CameraPyramid
 from invcompcamtrack_torch.device import resolve
 from invcompcamtrack_torch.image.pyramid import Pyramid, PyramidLevel, build_pyramid
+from invcompcamtrack_torch.match.track import TrackTable
 
 
 def tensor_from_numpy(a, device: torch.device | str | None = None,
@@ -74,3 +76,20 @@ def nposes_from_numpy(poses, pt3d, inlier_masks, images: Sequence,
     masks = tensor_from_numpy(np.asarray(inlier_masks, bool), device)
     return (pyramids, tensor_from_numpy(poses, device, torch.float32),
             tensor_from_numpy(pt3d, device, torch.float32), masks)
+
+
+def track_table_from_numpy(table, device: torch.device | str | None = None) -> TrackTable:
+    """Any object with the fields of ``match/track.py::TrackTable`` (such
+    as the JAX package's table) -> the port's table on one device, each
+    field with its own type (float32, bool, int32)."""
+    device = resolve(device)
+    types = dict(xy=torch.float32, alive=torch.bool, age=torch.int32,
+                 total_move=torch.float32, birth_xy=torch.float32,
+                 head=torch.int32, frame=torch.int32)
+    return TrackTable(**{k: tensor_from_numpy(np.asarray(getattr(table, k)), device, dt)
+                         for k, dt in types.items()})
+
+
+def track_table_to_numpy(table: TrackTable) -> dict:
+    """The table's fields as numpy arrays, by name."""
+    return {k: v.detach().cpu().numpy() for k, v in table._asdict().items()}

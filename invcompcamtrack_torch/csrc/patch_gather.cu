@@ -5,9 +5,11 @@
 // gradient patches and the 16x16 integer-origin window of the query image
 // that the GN iterations resample from (K2).
 // K5 replaces ::gather_patches (body _kernel_single): the psz x psz
-// bilinear patch.
+// bilinear patch, for any even psz: up to 16 the support is staged in
+// shared memory, above it (the descriptors' 18, the flow benchmark's 32)
+// each pixel reads its four taps straight through L1/L2.
 // K6 replaces ::gather_patches_grad (body _kernel_grad_fused): K1 without
-// the window, for any even psz <= 16.
+// the window, for any even psz <= 16 (no caller goes beyond).
 // K7 replaces ::gather_windows (body _kernel_windows): the (wh, ww) window
 // at an integer origin.
 //
@@ -36,67 +38,9 @@
 // plane copies of the TPU kernels have a counterpart here.
 #include <cstdint>
 
-#include "common.cuh"
+#include "patch_gather.cuh"
 
 namespace icgn {
-
-constexpr int kMaxPsz = 16;  // K5/K6: largest patch side
-
-// halo[a][b] = img[r0 - 1 + a][c0 - 1 + b] for the (psz+3)^2 halo of the
-// support at (r0, c0); reads are clamped into the plane, and a clamped
-// read only ever feeds a masked-out difference.
-__device__ __forceinline__ void load_halo(const float* __restrict__ img, int Hp,
-                                          int Wp, int r0, int c0, int psz,
-                                          float* halo, int lane) {
-  const int hs = psz + 3;
-  for (int k = lane; k < hs * hs; k += 32) {
-    const int a = k / hs, b = k - a * hs;
-    const int y = min(max(r0 - 1 + a, 0), Hp - 1);
-    const int x = min(max(c0 - 1 + b, 0), Wp - 1);
-    halo[k] = img[(size_t)y * Wp + x];
-  }
-  __syncwarp();
-}
-
-// The patch and its two gradient patches from a staged halo.
-__device__ __forceinline__ void patch_grad_from_halo(
-    const float* halo, int Hp, int Wp, int r0, int c0, int psz, int pad,
-    float4 w, float* __restrict__ p_img, float* __restrict__ p_dx,
-    float* __restrict__ p_dy, int lane) {
-  const int hs = psz + 3;
-  for (int p = lane; p < psz * psz; p += 32) {
-    const int i = p / psz, j = p - i * psz;
-    float ti[4], tx[4], ty[4];
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      // taps in weight order: (1,1), (1,0), (0,1), (0,0)
-      const int a = i + ((t < 2) ? 1 : 0);
-      const int b = j + ((t & 1) ? 0 : 1);
-      const int y = r0 + a, x = c0 + b;  // plane coords
-      const float* h = halo + (a + 1) * hs + (b + 1);
-      ti[t] = h[0];
-      const bool mdx = (y >= pad) && (y <= Hp - pad - 1) &&
-                       (x >= pad + 1) && (x <= Wp - pad - 2);
-      const bool mdy = (y >= pad + 1) && (y <= Hp - pad - 2) &&
-                       (x >= pad) && (x <= Wp - pad - 1);
-      tx[t] = mdx ? __fsub_rn(h[1], h[-1]) : 0.0f;
-      ty[t] = mdy ? __fsub_rn(h[hs], h[-hs]) : 0.0f;
-    }
-    p_img[p] = tap(w, ti[0], ti[1], ti[2], ti[3]);
-    p_dx[p] = tap(w, tx[0], tx[1], tx[2], tx[3]);
-    p_dy[p] = tap(w, ty[0], ty[1], ty[2], ty[3]);
-  }
-}
-
-// dst[a][b] = src[a][b] for a (wh, ww) window; src rows are Wp apart.
-__device__ __forceinline__ void copy_window(const float* __restrict__ src,
-                                            int Wp, int wh, int ww,
-                                            float* __restrict__ dst, int lane) {
-  for (int k = lane; k < wh * ww; k += 32) {
-    const int a = k / ww, b = k - a * ww;
-    dst[k] = src[(size_t)a * Wp + b];
-  }
-}
 
 // ------------------------------------------------------------------ K1
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
@@ -171,6 +115,30 @@ gather_patches_kernel(const float* __restrict__ img, int Wp,
   }
 }
 
+// K5 above kMaxPsz: no staging.  A lane's four taps are neighbours of the
+// next lane's, so the reads of one instruction fall on one or two rows of
+// the support and hit in L1; the arithmetic is the staged variant's.
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+gather_patches_direct_kernel(const float* __restrict__ img, int Wp,
+                             const int2* __restrict__ idx,
+                             const float4* __restrict__ wts,
+                             float* __restrict__ out, int M, int psz) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int m = blockIdx.x * kWarpsPerBlock + warp;
+  if (m >= M) return;
+
+  const int2 id = idx[m];  // the support fits the plane: no clamp needed
+  const float4 w = wts[m];
+  const float* sup = img + (size_t)id.x * Wp + id.y;
+  float* dst = out + (size_t)m * (psz * psz);
+  for (int p = lane; p < psz * psz; p += 32) {
+    const int i = p / psz, j = p - i * psz;
+    const float* s = sup + (size_t)i * Wp + j;
+    dst[p] = tap(w, __ldg(s + Wp + 1), __ldg(s + Wp), __ldg(s + 1), __ldg(s));
+  }
+}
+
 // ------------------------------------------------------------------ K7
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 gather_windows_kernel(const float* __restrict__ img, int Wp,
@@ -184,8 +152,6 @@ gather_windows_kernel(const float* __restrict__ img, int Wp,
   copy_window(img + (size_t)id.x * Wp + id.y, Wp, wh, ww,
               out + (size_t)m * (wh * ww), lane);
 }
-
-inline int blocks_for(int M) { return (M + kWarpsPerBlock - 1) / kWarpsPerBlock; }
 
 }  // namespace icgn
 
@@ -217,12 +183,18 @@ extern "C" int icgn_gather_patches_grad(const float* img, int Hp, int Wp,
 extern "C" int icgn_gather_patches(const float* img, int Hp, int Wp,
                                    const int* idx, const float* wts, float* out,
                                    int M, int psz, void* stream) {
-  if (psz < 2 || psz > icgn::kMaxPsz || Hp < psz + 1 || Wp < psz + 1)
-    return (int)cudaErrorInvalidValue;
-  icgn::gather_patches_kernel<<<icgn::blocks_for(M), icgn::kWarpsPerBlock * 32,
-                                0, (cudaStream_t)stream>>>(
-      img, Wp, reinterpret_cast<const int2*>(idx),
-      reinterpret_cast<const float4*>(wts), out, M, psz);
+  if (psz < 2 || Hp < psz + 1 || Wp < psz + 1) return (int)cudaErrorInvalidValue;
+  if (psz <= icgn::kMaxPsz)
+    icgn::gather_patches_kernel<<<icgn::blocks_for(M), icgn::kWarpsPerBlock * 32,
+                                  0, (cudaStream_t)stream>>>(
+        img, Wp, reinterpret_cast<const int2*>(idx),
+        reinterpret_cast<const float4*>(wts), out, M, psz);
+  else
+    icgn::gather_patches_direct_kernel<<<icgn::blocks_for(M),
+                                         icgn::kWarpsPerBlock * 32, 0,
+                                         (cudaStream_t)stream>>>(
+        img, Wp, reinterpret_cast<const int2*>(idx),
+        reinterpret_cast<const float4*>(wts), out, M, psz);
   return (int)cudaGetLastError();
 }
 

@@ -23,7 +23,7 @@ from pathlib import Path
 
 import torch
 
-# the patch and window sides K1, K2 and K3 are compiled for
+# the patch and window sides K1, K2, K3 and K9 are compiled for
 # (csrc/common.cuh: kPsz, kWin); K4-K7 take theirs at run time
 PSZ = 8
 WIN = 16
@@ -42,6 +42,10 @@ _SIGNATURES = {
     # rimg, qimg, Hp, Wp, idx, wts, p_img, p_dx, p_dy, qwin, M, pad, stream
     "icgn_gather_ref_grad_windows": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P,
                                      _I, _I, _P],
+    # K9 takes K1's arguments
+    "icgn_gather_prefetch": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # img, flow, out, H, W, stream
+    "icgn_warp_image": [_P, _P, _P, _I, _I, _P],
     # img, Hp, Wp, idx, wts, out, M, psz, stream
     "icgn_gather_patches": [_P, _I, _I, _P, _P, _P, _I, _I, _P],
     # img, Hp, Wp, idx, wts, p_img, p_dx, p_dy, M, psz, pad, stream

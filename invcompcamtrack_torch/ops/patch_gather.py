@@ -5,7 +5,8 @@
   per point the reference patch at its sub-pixel center with the two
   gradient patches, and the integer-origin query window that the GN
   iterations resample from.  Built for psz 8, window 16.
-- K5 ``gather_patches``: the ``psz x psz`` bilinear patch.
+- K5 ``gather_patches``: the ``psz x psz`` bilinear patch, any even psz
+  (the descriptors call it at 18, the flow benchmark at 32).
 - K6 ``gather_patches_grad``: K1 without the window, any even psz <= 16.
 - K7 ``gather_windows``: the ``(wh, ww)`` window at an integer origin.
 
@@ -38,7 +39,9 @@ from invcompcamtrack_torch.ops import _build
 launches = {"gather_ref_grad_windows": 0, "gather_patches": 0,
             "gather_patches_grad": 0, "gather_windows": 0}
 
-MAX_PSZ = 16  # K5/K6 stage one support per warp in shared memory
+# K6 (and K4) stage one halo or support per warp in shared memory; K5 does
+# up to this side and reads its taps without staging above it
+MAX_PSZ = 16
 
 
 # ---------------------------------------------------------------- plain
@@ -127,10 +130,15 @@ def _check_origins(name: str, img: torch.Tensor, origins: torch.Tensor) -> None:
     require(name, origins.shape[-1] == 2, "origins must be (..., 2)")
 
 
-def _check_psz(name: str, img: torch.Tensor, psz: int) -> None:
-    if psz % 2 != 0 or not 2 <= psz <= MAX_PSZ:
+def _check_psz(name: str, img: torch.Tensor, psz: int,
+               max_psz: int | None = None) -> None:
+    """K5 takes any even psz; K6 up to ``max_psz`` (no caller goes beyond)."""
+    if psz % 2 != 0 or psz < 2:
+        raise NotImplementedError(f"{name}: the kernel takes an even psz, got {psz}")
+    if max_psz is not None and psz > max_psz:
         raise NotImplementedError(
-            f"{name}: the kernel takes an even psz in [2, {MAX_PSZ}], got {psz}")
+            f"{name}: the kernel takes an even psz up to {max_psz}, got {psz}: no "
+            f"caller goes beyond, and gather_patches takes any even psz")
     require(name, min(img.shape) >= psz + 1,
             f"plane {tuple(img.shape)} is smaller than the patch support")
 
@@ -184,7 +192,7 @@ def gather_patches_grad(img: torch.Tensor, dx: torch.Tensor, dy: torch.Tensor,
                                          patch_norm)
     _check_plane(name, img)
     _check_centers(name, img, centers)
-    _check_psz(name, img, psz)
+    _check_psz(name, img, psz, MAX_PSZ)
     lead = centers.shape[:-1]
     idx, w = support_of(img, centers.reshape(-1, 2), psz, padding)
     M = idx.shape[0]
@@ -233,23 +241,15 @@ def gather_windows(img: torch.Tensor, origins: torch.Tensor, wh: int,
     return out.reshape(origins.shape[:-1] + (wh, ww))
 
 
-def gather_ref_grad_windows(ref: PyramidLevel, query_img: torch.Tensor,
-                            centers: torch.Tensor, origins: torch.Tensor,
-                            psz: int, padding: int, win: int,
-                            patch_norm: bool = False):
-    """K1: the dual gather; CPU tensors -> plain version, CUDA tensors ->
-    kernel.
-
-    ref: padded reference level (the kernel reads ``ref.img`` only and
-    forms the gradient patches from it); query_img: padded query plane
-    of the same shape; centers (..., 2) f32 unpadded coords; origins
-    (..., 2) int32 window origins in the padded plane.
-    """
-    name = "gather_ref_grad_windows"
+def dual_gather(name: str, entry: str, counts: dict, ref: PyramidLevel,
+                query_img: torch.Tensor, centers: torch.Tensor,
+                origins: torch.Tensor, psz: int, padding: int, win: int,
+                patch_norm: bool):
+    """Check, prepare and launch a dual-gather kernel on CUDA tensors: K1
+    (``icgn_gather_ref_grad_windows``) or K9 (``icgn_gather_prefetch``,
+    ``ops/patch_prefetch.py``), which take the same arguments and give the
+    same outputs.  ``counts[name]`` is the wrapper's launch count."""
     img = ref.img
-    if not on_card(name, img):
-        return gather_ref_grad_windows_plain(ref, query_img, centers, origins,
-                                             psz, padding, win, patch_norm)
     if (psz, win) != (_build.PSZ, _build.WIN):
         raise NotImplementedError(
             f"{name}: the kernel is built for psz={_build.PSZ}, "
@@ -280,14 +280,34 @@ def gather_ref_grad_windows(ref: PyramidLevel, query_img: torch.Tensor,
     qwin = torch.empty((M, win, win), dtype=torch.float32, device=img.device)
     if M > 0:
         lib = _build.load()
-        code = lib.icgn_gather_ref_grad_windows(
+        code = getattr(lib, entry)(
             img.data_ptr(), query_img.data_ptr(), Hp, Wp, idx.data_ptr(),
             w.data_ptr(), p_img.data_ptr(), p_dx.data_ptr(), p_dy.data_ptr(),
             qwin.data_ptr(), M, padding, _build.stream_ptr(img.device))
         _build.check(lib, code, name)
-        launches[name] += 1
+        counts[name] += 1
     if patch_norm:
         p_img = patch_mean_removed(p_img)
     shp = lead + (psz, psz)
     return (p_img.reshape(shp), p_dx.reshape(shp), p_dy.reshape(shp),
             qwin.reshape(lead + (win, win)))
+
+
+def gather_ref_grad_windows(ref: PyramidLevel, query_img: torch.Tensor,
+                            centers: torch.Tensor, origins: torch.Tensor,
+                            psz: int, padding: int, win: int,
+                            patch_norm: bool = False):
+    """K1: the dual gather; CPU tensors -> plain version, CUDA tensors ->
+    kernel.
+
+    ref: padded reference level (the kernel reads ``ref.img`` only and
+    forms the gradient patches from it); query_img: padded query plane
+    of the same shape; centers (..., 2) f32 unpadded coords; origins
+    (..., 2) int32 window origins in the padded plane.
+    """
+    name = "gather_ref_grad_windows"
+    if not on_card(name, ref.img):
+        return gather_ref_grad_windows_plain(ref, query_img, centers, origins,
+                                             psz, padding, win, patch_norm)
+    return dual_gather(name, "icgn_gather_ref_grad_windows", launches, ref,
+                       query_img, centers, origins, psz, padding, win, patch_norm)

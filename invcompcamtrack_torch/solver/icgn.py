@@ -2,7 +2,8 @@
 ``invcompcamtrack_tpu/solver/icgn.py``).
 
 The fused path (``window_cache=True`` and ``psz == 8``): per scale one
-dual gather (K1, ``ops/patch_gather.py``) gives the reference patches,
+dual gather (K1, ``ops/patch_gather.py``, or with ``gather_prefetch=True``
+its prefetch-pipelined twin K9, ``ops/patch_prefetch.py``) gives the reference patches,
 their gradients and the query windows; per GN iteration one fused
 resample + residual + projection (K2, ``ops/icgn_iter.py``) gives
 ``(gx, gy)`` per point.  The steepest-descent planes factor as
@@ -37,7 +38,7 @@ from invcompcamtrack_torch.core import pose as pose_ops
 from invcompcamtrack_torch.core.camera import CameraPyramid
 from invcompcamtrack_torch.image.patch import extract_patches, extract_patches_grad
 from invcompcamtrack_torch.image.pyramid import Pyramid
-from invcompcamtrack_torch.ops import _build, icgn_iter, patch_gather
+from invcompcamtrack_torch.ops import _build, icgn_iter, patch_gather, patch_prefetch
 from invcompcamtrack_torch.ops.linalg import cholesky_solve_sym
 from invcompcamtrack_torch.ops.window_sample import (
     gather_windows_any,
@@ -94,15 +95,6 @@ def fused_supported(psz: int, win: int) -> bool:
     return psz == _build.PSZ and win == _build.WIN
 
 
-def _check_cfg(cfg: ICGNParams) -> None:
-    if cfg.gather_prefetch:
-        raise NotImplementedError(
-            "gather_prefetch=True routes the dual gather through K9 "
-            "(gather_ref_grad_and_windows_prefetch), which is not yet ported")
-    # cfg.gather_split only sizes the JAX kernels' fast memory; it
-    # changes nothing here.
-
-
 def _outer_sum(a: torch.Tensor, b: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     """sum_n a[n,k] b[n,l] m[n] over the point axis -> (..., 6, 6)."""
     return torch.matmul(a.transpose(-1, -2), b * m[..., None])
@@ -119,13 +111,20 @@ def _entry_origins(p, Xn, valid_ref, cam_level, cfg: ICGNParams) -> torch.Tensor
 
 def _fused_scale(level_ref, level_new, uv_ref, Xc_safe, valid_ref, origins,
                  cam_level, cfg: ICGNParams):
-    """K1 once, then K2 per iteration -> (H, rhs_of(uv_new, valid_new))."""
+    """K1 (or K9) once, then K2 per iteration -> (H, rhs_of(uv_new,
+    valid_new)).  ``cfg.gather_split`` only sizes the JAX kernels' fast
+    memory and changes nothing here."""
     fx, fy = cam_level[:2]
     lead, N = uv_ref.shape[:-2], uv_ref.shape[-2]
     pad, win = cam_level_padding(cfg), cfg.window_size
     # [4] ONE dual gather per scale: reference patches + gradients and
-    # the query windows at the scale-entry projections
-    p_img, p_dx, p_dy, qwin = patch_gather.gather_ref_grad_windows(
+    # the query windows at the scale-entry projections; K9 where the
+    # caller asks for it and its shape rule holds, else K1 (the same
+    # outputs, bit for bit)
+    gather = (patch_prefetch.gather_ref_grad_windows_prefetch
+              if cfg.gather_prefetch and patch_prefetch.supported(cfg.psz, win)
+              else patch_gather.gather_ref_grad_windows)
+    p_img, p_dx, p_dy, qwin = gather(
         level_ref, level_new.img, uv_ref, origins, cfg.psz, pad, win,
         patch_norm=cfg.dopatchnorm)
     # [5]+[6] masked Jacobian rows and the Hessian from three patch moments
@@ -261,7 +260,6 @@ def track_pose(pyr_ref: Pyramid, pyr_new: Pyramid, X: torch.Tensor,
     X: (..., N, 3) world points; p_init: (..., 6) se(3) pose of
     [R | t] world->cam.  Returns the refined pose (and ICGNAux).
     """
-    _check_cfg(cfg)
     dtype = p_init.dtype
     X = X.to(dtype)
     if cfg.donorm:

@@ -191,7 +191,7 @@ def test_track_nposes_does_not_depend_on_the_border_rule(nposes_case):
 
 def test_chain_cfg_paths(frames, nposes_case):
     """The verifier with psz 4 (K6/K7 tracker path, K4 at psz 4) runs and
-    ranks the hypotheses alike; gather_prefetch still raises."""
+    ranks the hypotheses alike; gather_prefetch changes nothing there."""
     pyrs4, poses, pt3d, m = convert.nposes_from_numpy(
         nposes_case["inputs"][1].numpy(), frames["X"], nposes_case["masks"],
         frames["imgs"], num_levels=LEVELS, padding=4, device="cpu")
@@ -201,6 +201,9 @@ def test_chain_cfg_paths(frames, nposes_case):
     res = chain.track_nposes(pyrs4, poses, pt3d, m, cam4, cfg4, fb_frames=(1, 1))
     assert bool(torch.isfinite(res.pose_tracks).all())
     assert int(chain.select_best(res, torch.ones(4, dtype=torch.bool))[0]) in (0, 1)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        chain.track_nposes(pyrs4, poses, pt3d, m, cam4,
-                           dataclasses.replace(cfg4, gather_prefetch=True))
+    # gather_prefetch asks for K9, which serves psz 8 only: at psz 4 the
+    # flag changes nothing (the JAX tracker's own branch)
+    pre = chain.track_nposes(pyrs4, poses, pt3d, m, cam4,
+                             dataclasses.replace(cfg4, gather_prefetch=True))
+    assert torch.equal(pre.pose_tracks, res.pose_tracks)
+    assert torch.equal(pre.correlations, res.correlations)

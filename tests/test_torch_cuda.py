@@ -15,7 +15,20 @@ Tolerances (kernel vs plain version, same inputs, both on the card):
   butterfly: 1e-5 of sum |p_d * pdiff|.  K3: exact without the mean,
   4e-5 (about 1 ulp of intensities below 256) with it.
 - K5, K6: the plain version's float operations in its order; K7: a
-  copy.  Bit-exact, at psz 8, 4, 6 and 16, border centers included.
+  copy.  Bit-exact, at psz 8, 4, 6 and 16, border centers included; K5
+  also at psz 18 and 32, which its unstaged variant serves (K6 refuses
+  them: it has no caller beyond 16).
+- K8: the plain version's float operations in its order, through the
+  non-contracting _rn intrinsics: bit-exact for every flow (smooth, a
+  step, leaving the image, integer, infinite, NaN).
+- K9: K1's own device functions on the same floats: equal to K1 and to
+  the plain version bit for bit; the tracker's poses with
+  ``gather_prefetch=True`` equal those without it bit for bit.
+- ``dense_flow_lk``, card vs CPU: measured 0.0 px at every pixel on an
+  H100 (torch 2.11, CUDA 12.8: the card's and the CPU's box convolutions
+  sum in one order); another convolution algorithm need not, so the
+  limits are those of two float32 runs of one flow: 1e-3 px on every
+  pixel, 1e-5 px at the median.  Descriptors: 2e-6 on unit vectors.
 - K4: three butterfly sums per patch and one division: 2e-5 of
   sum|p_a p_b| / (n_a n_b), plus 8 MEAN_EPS (1/n_a + 1/n_b) for the
   other summation order of the patch mean (MEAN_EPS = 6.2e-5, 2 ulp of
@@ -34,7 +47,8 @@ from invcompcamtrack_torch.cli import track_pair
 from invcompcamtrack_torch.core import lie
 from invcompcamtrack_torch.core.camera import CameraPyramid
 from invcompcamtrack_torch.image.pyramid import PyramidLevel, build_pyramid
-from invcompcamtrack_torch.ops import icgn_iter, ncc3, patch_gather
+from invcompcamtrack_torch.match import dense_flow, descriptors
+from invcompcamtrack_torch.ops import icgn_iter, ncc3, patch_gather, patch_prefetch, warp
 from invcompcamtrack_torch.ops import window_sample as ws
 from invcompcamtrack_torch.solver import chain, icgn
 from invcompcamtrack_torch.utils import io
@@ -163,7 +177,7 @@ def test_track_pose_batch_on_card_matches_cpu(pair, cuda_device):
     torch.testing.assert_close(out["cuda"], out["cpu"], rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("psz", [8, 4, 6, 16])
+@pytest.mark.parametrize("psz", [8, 4, 6, 16, 18, 32])
 def test_k5_k6_k7_kernels_match_plain(pair, cuda_device, psz):
     _, _, img_ref, _, _ = pair
     lvl = build_pyramid(t32(img_ref, cuda_device), 2, psz)[1]
@@ -179,6 +193,10 @@ def test_k5_k6_k7_kernels_match_plain(pair, cuda_device, psz):
         got = patch_gather.gather_patches(lvl.img, centers, psz, psz, pn)
         want = patch_gather.gather_patches_plain(lvl.img, centers, psz, psz, pn)
         torch.testing.assert_close(got, want, rtol=0, atol=0)
+        if psz > patch_gather.MAX_PSZ:          # K6 has no caller beyond 16
+            with pytest.raises(NotImplementedError, match="gather_patches takes"):
+                patch_gather.gather_patches_grad(lvl.img, lvl.dx, lvl.dy, centers, psz, psz)
+            continue
         got = patch_gather.gather_patches_grad(lvl.img, lvl.dx, lvl.dy, centers, psz, psz, pn)
         want = patch_gather.gather_patches_grad_plain(lvl.img, lvl.dx, lvl.dy, centers,
                                                       psz, psz, pn)
@@ -192,10 +210,11 @@ def test_k5_k6_k7_kernels_match_plain(pair, cuda_device, psz):
     assert patch_gather.launches == {
         "gather_ref_grad_windows": n0["gather_ref_grad_windows"],
         "gather_patches": n0["gather_patches"] + 2,
-        "gather_patches_grad": n0["gather_patches_grad"] + 2,
+        "gather_patches_grad": n0["gather_patches_grad"]
+        + (2 if psz <= patch_gather.MAX_PSZ else 0),
         "gather_windows": n0["gather_windows"] + 3}
     with pytest.raises(NotImplementedError):
-        patch_gather.gather_patches(lvl.img, centers, 18, psz)
+        patch_gather.gather_patches(lvl.img, centers, 7, psz)
     with pytest.raises(ValueError, match="float32"):
         patch_gather.gather_patches_grad(lvl.img.double(), lvl.dx, lvl.dy, centers, psz, psz)
     with pytest.raises(ValueError, match="int32"):
@@ -302,3 +321,130 @@ def test_cli_track_pair_run_on_card_matches_cpu(pair, cuda_device, psz, want):
     assert on_card.shape == (6,) and on_card.dtype == np.float64
     np.testing.assert_allclose(on_card, on_cpu, rtol=0, atol=1e-4)
     np.testing.assert_allclose(on_card, p_gt, rtol=0, atol=5e-3)
+
+
+def _flows(H, W, dev):
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    smooth = np.stack([1.3 * np.sin(yy / 17.0) + 0.7 * np.cos(xx / 43.0) + 4.0,
+                       1.1 * np.cos(yy / 13.0) - 0.9 * np.sin(xx / 39.0) - 6.0], -1)
+    step = smooth.copy()
+    step[:, W // 2:, 0] += 10.0
+    leaves = smooth.copy()
+    leaves[:6] -= 40.0
+    leaves[-6:] += 55.0
+    leaves[:, :5, 0] -= 300.0
+    leaves[:, -5:, 0] += 1e6
+    integer = np.zeros((H, W, 2), np.float32)
+    integer[..., 0], integer[..., 1] = 3.0, -2.0
+    flows = dict(smooth=smooth, step=step, leaves=leaves, integer=integer)
+    if min(H, W) > 8:
+        flows["nonfinite"] = smooth.copy()
+        flows["nonfinite"][3, 4, 0] = np.inf
+        flows["nonfinite"][5, 6, 1] = -np.inf
+        flows["nonfinite"][7, 8, 0] = np.nan
+    return {k: t32(v, dev) for k, v in flows.items()}
+
+
+@pytest.mark.parametrize("shape", [(240, 320), (45, 80), (2, 2)])
+def test_k8_kernel_matches_plain(cuda_device, shape):
+    H, W = shape
+    rng = np.random.default_rng(13)
+    img = t32(rng.uniform(0, 255, (H, W)), cuda_device)
+    for kind, flow in _flows(H, W, cuda_device).items():
+        n0 = warp.launches["warp_image"]
+        got = warp.warp_image(img, flow)
+        torch.cuda.synchronize()
+        assert warp.launches["warp_image"] == n0 + 1
+        want = warp.warp_image_plain(img, flow)
+        assert torch.equal(torch.nan_to_num(got, nan=-1.0), torch.nan_to_num(want, nan=-1.0)), kind
+        # the CPU's plain version gives the same floats
+        assert torch.equal(torch.nan_to_num(got.cpu(), nan=-1.0),
+                           torch.nan_to_num(warp.warp_image_plain(img.cpu(), flow.cpu()),
+                                            nan=-1.0)), kind
+    # a view (a level stripped of its padding) is taken as it is
+    big = t32(rng.uniform(0, 255, (H + 6, W + 6)), cuda_device)
+    view = big[3:-3, 3:-3]
+    flow = _flows(H, W, cuda_device)["smooth"]
+    assert torch.equal(warp.warp_image(view, flow), warp.warp_image_plain(view, flow))
+    with pytest.raises(ValueError, match="float32"):
+        warp.warp_image(img.double(), flow)
+    with pytest.raises(ValueError, match="flow must be"):
+        warp.warp_image(img, flow[:, :-1])
+    with pytest.raises(ValueError, match="is on"):
+        warp.warp_image(img, flow.cpu())
+
+
+@pytest.mark.parametrize("patch_norm", [False, True])
+def test_k9_kernel_equals_k1_and_plain(pair, cuda_device, patch_norm):
+    lvl, qimg, centers, origins = _k1_inputs(pair, cuda_device)
+    # enough points that every warp of the persistent grid walks several
+    reps = 40
+    centers = centers.repeat(reps, 1) + t32(
+        np.random.default_rng(14).uniform(-1, 1, (len(centers) * reps, 2)), cuda_device)
+    origins = ws.window_origin(centers + 1.5, PSZ, WIN, PAD)
+    n0 = patch_prefetch.launches["gather_ref_grad_windows_prefetch"]
+    n1 = patch_gather.launches["gather_ref_grad_windows"]
+    got = patch_prefetch.gather_ref_grad_windows_prefetch(
+        lvl, qimg, centers, origins, PSZ, PAD, WIN, patch_norm=patch_norm)
+    torch.cuda.synchronize()
+    assert patch_prefetch.launches["gather_ref_grad_windows_prefetch"] == n0 + 1
+    assert patch_gather.launches["gather_ref_grad_windows"] == n1
+    k1 = patch_gather.gather_ref_grad_windows(lvl, qimg, centers, origins, PSZ, PAD, WIN,
+                                              patch_norm=patch_norm)
+    plain = patch_prefetch.gather_ref_grad_windows_prefetch_plain(
+        lvl, qimg, centers, origins, PSZ, PAD, WIN, patch_norm=patch_norm)
+    for g, a, b in zip(got, k1, plain):
+        assert torch.equal(g, a) and torch.equal(g, b)
+    with pytest.raises(NotImplementedError):
+        patch_prefetch.gather_ref_grad_windows_prefetch(lvl, qimg, centers, origins, 6,
+                                                        PAD, 14)
+    # one point, and fewer points than one block's warps
+    for m in (1, 5):
+        got = patch_prefetch.gather_ref_grad_windows_prefetch(
+            lvl, qimg, centers[:m], origins[:m], PSZ, PAD, WIN)
+        for g, a in zip(got, (t[:m] for t in k1)):
+            if not patch_norm:
+                assert torch.equal(g, a)
+
+
+def test_tracker_with_gather_prefetch_on_card_equals_k1_run(pair, cuda_device):
+    sc, _, img_ref, img_new, X = pair
+    Xb = t32(np.stack([X, X[::-1]]), cuda_device)
+    cfg = ICGNParams(lv_f=1, lv_l=0, psz=8, maxiter=10, normdp_ratio=0.01)
+    cam = CameraPyramid.create(sc.fc, sc.cc, sc.wh, 2, 8)
+    pr, pn_ = build_pyramid(t32(img_ref, cuda_device), 2, 8), build_pyramid(t32(img_new, cuda_device), 2, 8)
+    p0 = torch.zeros((2, 6), device=cuda_device)
+    base = icgn.track_pose_batch(pr, pn_, Xb, p0, cam, cfg)
+    n9 = patch_prefetch.launches["gather_ref_grad_windows_prefetch"]
+    n1 = patch_gather.launches["gather_ref_grad_windows"]
+    pre = icgn.track_pose_batch(pr, pn_, Xb, p0, cam,
+                                ICGNParams(lv_f=1, lv_l=0, psz=8, maxiter=10,
+                                           normdp_ratio=0.01, gather_prefetch=True))
+    assert patch_prefetch.launches["gather_ref_grad_windows_prefetch"] == n9 + 2
+    assert patch_gather.launches["gather_ref_grad_windows"] == n1
+    assert torch.equal(pre, base)
+
+
+def test_dense_flow_and_descriptors_on_card_match_cpu(pair, cuda_device):
+    _, _, img_ref, img_new, _ = pair
+    L, pad, iters = 3, 8, 4
+    out = {}
+    for dev in ("cpu", cuda_device):
+        n0 = warp.launches["warp_image"]
+        p0 = build_pyramid(t32(img_ref, dev), L, pad)
+        p1 = build_pyramid(t32(img_new, dev), L, pad)
+        out[str(dev)] = dense_flow.dense_flow_lk(p0, p1, pad, iters=iters).cpu()
+        assert warp.launches["warp_image"] - n0 == (0 if str(dev) == "cpu" else L * iters)
+    gap = (out["cuda"] - out["cpu"]).abs()
+    assert float(gap.max()) <= 1e-3 and float(gap.median()) <= 1e-5
+    rng = np.random.default_rng(15)
+    centers = t32(np.c_[rng.uniform(20, 300, 64), rng.uniform(20, 220, 64)])
+    n5 = patch_gather.launches["gather_patches"]
+    on_card = descriptors.sift_like_descriptors(
+        build_pyramid(t32(img_ref, cuda_device), 1, 12)[0].img, centers.to(cuda_device), 12)
+    assert patch_gather.launches["gather_patches"] == n5 + 1        # K5 at psz 18
+    on_cpu = descriptors.sift_like_descriptors(build_pyramid(t32(img_ref), 1, 12)[0].img,
+                                               centers, 12)
+    torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=0, atol=2e-6)
+    idx, ok = descriptors.ratio_match(on_card, on_card.flip(0))
+    assert torch.equal(idx.cpu(), torch.arange(63, -1, -1))

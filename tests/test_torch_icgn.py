@@ -142,13 +142,14 @@ def test_unported_paths_raise_and_tpu_only_flags_change_nothing(scene):
     tn = build_pyramid(t32(scene["img_new"]), 2, 8)
     X, p0 = t32(scene["X"]), torch.zeros(6)
     cfg = ICGNParams(lv_f=1, lv_l=0, maxiter=4)
-    # only K9's flag is still unported; the non-fused paths run
-    # (tests/test_torch_chain.py holds them against the JAX tracker)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        icgn.track_pose(tr, tn, X, p0, cam, dataclasses.replace(cfg, gather_prefetch=True))
+    # no path is left unported: K9's flag runs and gives K1's poses bit for
+    # bit (tests/test_torch_prefetch.py holds it against the JAX tracker;
+    # tests/test_torch_chain.py the non-fused paths)
+    ref = icgn.track_pose(tr, tn, X, p0, cam, cfg)
+    pre = icgn.track_pose(tr, tn, X, p0, cam, dataclasses.replace(cfg, gather_prefetch=True))
+    torch.testing.assert_close(pre, ref, rtol=0, atol=0)
     exact = icgn.track_pose(tr, tn, X, p0, cam, dataclasses.replace(cfg, window_cache=False))
     assert bool(torch.isfinite(exact).all())
-    ref = icgn.track_pose(tr, tn, X, p0, cam, cfg)
     split = icgn.track_pose(tr, tn, X, p0, cam, dataclasses.replace(cfg, gather_split=True))
     torch.testing.assert_close(split, ref, rtol=0, atol=0)
 
