@@ -33,7 +33,8 @@ and read just after:
 
 It checks that each path went through its kernels and solved its
 problem, compares the card with the port's CPU run, then times the paths
-and every kernel beside its plain version and its bound.
+and every kernel beside its plain version and its bound, and K5 and K6
+also at the other patch sides their callers use.
 
 It imports no JAX.  It exits non-zero, and prints no result, when no
 CUDA card is present, when the package is missing, or when any phase
@@ -68,6 +69,16 @@ PEAK_F32_FLOPS = 67e12
 # intensities < 256.
 K1_TOL = 1e-4
 GATHER_TOL = 0.0
+# The centres at which K5 and K6, which compute the support start and the
+# weights themselves, must still equal the plain version: on an integer,
+# within 1e-5 below one (first column from ceil(x + 1e-5), weights from
+# x - floor(x)), just above one, at negative fractions, and not finite
+# (NaN patches, read from inside the plane).
+EDGE_CENTERS = ([[k + d, 0.5 * k + d] for k in (0.0, 1.0, 7.0, 300.0, 1279.0)
+                 for d in (0.0, -5e-6, 1e-5, -1e-5, 2e-5, -0.25)]
+                + [[-0.3, -0.7], [-1.5, 3.25], [-2.0, -3.0], [float("nan"), 5.0],
+                   [5.0, float("nan")], [float("nan")] * 2, [float("inf"), 3.0],
+                   [3.0, float("-inf")]])
 # K8 performs the plain version's float operations in its order through
 # the _rn intrinsics: bit-exact, NaN pixels at the same places.  K9 runs
 # K1's device functions on the same floats: equal to K1 bit for bit.
@@ -457,41 +468,57 @@ def main() -> None:
           f"err on textured patches {k4_err} (tol {K4_RTOL} x sum|p_a p_b|/(n_a n_b) "
           f"+ {8 * MEAN_EPS:.1e} x (1/n_a + 1/n_b))")
 
+    # K5 and K6 compute each point's support start and weights from its
+    # centre, so they are also held at the centres where the reference's
+    # rule bites (EDGE_CENTERS), which stand in for points 8 onwards
+    uv_e = uv0.clone()
+    uv_e[8:8 + len(EDGE_CENTERS)] = torch.tensor(EDGE_CENTERS, device=dev)
+    n_nonfinite = sum(1 for c in EDGE_CENTERS if not np.isfinite(c).all())
+
+    def exact_gap(got, want, what):
+        """max |got - want| over the numbers; NaN must stand at the same
+        places, and exactly at the points whose centre is not finite."""
+        nan_g, nan_w = torch.isnan(got), torch.isnan(want)
+        check(bool(torch.equal(nan_g, nan_w)), f"{what}: NaN at other places than plain")
+        n_nan = int(nan_w.reshape(M, -1).any(-1).sum())
+        check(n_nan == n_nonfinite, f"{what}: {n_nan} NaN points, not {n_nonfinite}")
+        return float((torch.nan_to_num(got) - torch.nan_to_num(want)).abs().max())
+
     gather_err = {"K5": 0.0, "K6": 0.0, "K7": 0.0}
     gather_in = {}
-    for q in (psz, 4, 6):
+    for q in (psz, 4, 6, 16, 18, 20, 32):
         lvl = (pyr_ref[0] if q == psz
                else build_pyramid(convert.tensor_from_numpy(img_ref), 1, q)[0])
+        for pn in (False, True):
+            g5 = patch_gather.gather_patches(lvl.img, uv_e, q, q, pn)
+            w5 = patch_gather.gather_patches_plain(lvl.img, uv_e, q, q, pn)
+            gather_err["K5"] = max(gather_err["K5"], exact_gap(g5, w5, f"K5 psz {q}"))
+            if q > patch_gather.MAX_PSZ:
+                continue
+            g6 = patch_gather.gather_patches_grad(lvl.img, lvl.dx, lvl.dy, uv_e, q, q, pn)
+            w6 = patch_gather.gather_patches_grad_plain(lvl.img, lvl.dx, lvl.dy, uv_e,
+                                                        q, q, pn)
+            gather_err["K6"] = max(gather_err["K6"], *(
+                exact_gap(a, b, f"K6 psz {q} {part}")
+                for a, b, part in zip(g6, w6, ("p_img", "p_dx", "p_dy"))))
+        gather_in[q] = dict(lvl=lvl)
+        if q not in (psz, 4, 6):
+            continue
         origins_q = ws.window_origin(uv0 + on_card(gen.uniform(-2.0, 2.0, (M, 2))),
                                      q, q + 8, q)
-        for pn in (False, True):
-            g5 = patch_gather.gather_patches(lvl.img, uv0, q, q, pn)
-            w5 = patch_gather.gather_patches_plain(lvl.img, uv0, q, q, pn)
-            gather_err["K5"] = max(gather_err["K5"], float((g5 - w5).abs().max()))
-            g6 = patch_gather.gather_patches_grad(lvl.img, lvl.dx, lvl.dy, uv0, q, q, pn)
-            w6 = patch_gather.gather_patches_grad_plain(lvl.img, lvl.dx, lvl.dy, uv0,
-                                                        q, q, pn)
-            gather_err["K6"] = max(gather_err["K6"],
-                                   *(float((a - b).abs().max()) for a, b in zip(g6, w6)))
         g7 = patch_gather.gather_windows(lvl.img, origins_q, q + 8, q + 8)
         w7 = patch_gather.gather_windows_plain(lvl.img, origins_q, q + 8, q + 8)
         gather_err["K7"] = max(gather_err["K7"], float((g7 - w7).abs().max()))
-        gather_in[q] = dict(lvl=lvl, origins=origins_q, windows=w7)
-    # K5 at the patch sides of the descriptors (18) and of the flow
-    # benchmark (32), which its unstaged variant serves
-    for q in (18, 32):
-        lvl = build_pyramid(convert.tensor_from_numpy(img_ref), 1, q)[0]
-        for pn in (False, True):
-            g5 = patch_gather.gather_patches(lvl.img, uv0, q, q, pn)
-            w5 = patch_gather.gather_patches_plain(lvl.img, uv0, q, q, pn)
-            gather_err["K5"] = max(gather_err["K5"], float((g5 - w5).abs().max()))
-        del g5, w5
+        gather_in[q].update(origins=origins_q, windows=w7)
+    del g5, w5, g6, w6
     torch.cuda.synchronize()
     for k, err in gather_err.items():
         check(err <= GATHER_TOL, f"{k} vs plain: max abs err {err} (expected bit-exact)")
-    print(f"K5, K6, K7 vs plain: {M} points, psz 8, 4 (pad 4, 12x12 windows) and 6, K5 "
-          f"also at psz 18 and 32, with and without the patch mean, max abs err "
-          f"{gather_err} (tol {GATHER_TOL})")
+    print(f"K5, K6, K7 vs plain: {M} points ({len(EDGE_CENTERS)} of them on, just below "
+          f"and just above integers, at negative fractions and not finite for K5 and K6), "
+          f"psz 8, 4 (pad 4, 12x12 windows), 6 and 16 (K5, K6), K5 also at psz 18, 20 and "
+          f"32, with and without the patch mean, max abs err {gather_err} (tol {GATHER_TOL}; NaN "
+          f"exactly at the {n_nonfinite} points whose centre is not finite)")
 
     # ---- phase 3c: K8 vs its plain version at 1280x720 and at the
     # coarsest level's 45x80: (a) a smooth flow, (b) a 10 px step across
@@ -1038,17 +1065,51 @@ def main() -> None:
         "K9": (lambda: patch_prefetch.gather_ref_grad_windows_prefetch(*k1_args),
                lambda: patch_prefetch.gather_ref_grad_windows_prefetch_plain(*k1_args)),
     }
-    # "ms": the kernel's own time; "wrapper_ms": every device op of one
-    # wrapper call (the kernel and the torch ops that prepare its indices
-    # and weights); "plain_ms": every device op of the plain version
+    # "ms": the kernel's own time; "wrapper_ms" and "wrapper_ops": every
+    # device op of one wrapper call (the kernel and any torch ops that
+    # prepare its indices and weights); "plain_ms": every device op of the
+    # plain version
     times = {}
     for k, (kern, plain) in pairs.items():
-        wrapper_ms, _, own = device_ms(torch, kern, reps=5, what=k, per_call=("icgn::", 1))
+        wrapper_ms, wrapper_ops, own = device_ms(torch, kern, reps=5, what=k,
+                                                 per_call=("icgn::", 1))
         check(len(own) == 1, f"{k}: expected one kernel of csrc/ per call, saw {own}")
         times[k] = {"ms": sum(own.values()), "wrapper_ms": wrapper_ms,
+                    "wrapper_ops": wrapper_ops,
                     "plain_ms": device_ms(torch, plain, reps=5, what=k + " plain")[0],
                     "wall_ms": cuda_ms(torch, kern, reps=5, warmup=1),
                     "plain_wall_ms": cuda_ms(torch, plain, reps=5, warmup=1)}
+    # K5 and K6 take the centres: a call without the patch mean is one op
+    for k in ("K5", "K6"):
+        check(times[k]["wrapper_ops"] == 1, f"{k}: a call is {times[k]['wrapper_ops']} "
+              f"device ops, not 1")
+
+    # K5 and K6 at the other patch sides their callers use, on level 0 padded
+    # by the side: kernel and wrapper ms beside the bound
+    def gather_bound(k, q, plane_bytes):
+        npx_q = q * q
+        if k == "K5":
+            return bound(plane_bytes + M * 8 + M * npx_q * 4, M * npx_q * 7)
+        return bound(plane_bytes + M * 8 + M * 3 * npx_q * 4,
+                     M * (3 * npx_q * 7 + 2 * (q + 1) ** 2))
+
+    size_times = []
+    for k, q in (("K5", 4), ("K5", 16), ("K5", 18), ("K5", 20), ("K5", 32), ("K6", 4),
+                 ("K6", 16)):
+        lv = gather_in[q]["lvl"]
+        if k == "K5":
+            def call(lv=lv, q=q):
+                return patch_gather.gather_patches(lv.img, uv0, q, q)
+        else:
+            def call(lv=lv, q=q):
+                return patch_gather.gather_patches_grad(lv.img, lv.dx, lv.dy, uv0, q, q)
+        w_ms, w_ops, own = device_ms(torch, call, reps=5, what=f"{k} psz {q}",
+                                     per_call=("icgn::", 1))
+        b_ms, b_by = gather_bound(k, q, lv.img.numel() * 4)
+        size_times.append({"kernel": k, "psz": q, "ms": sum(own.values()),
+                           "wrapper_ms": w_ms, "wrapper_ops": w_ops, "bound_ms": b_ms,
+                           "bound_by": b_by})
+        check(w_ops == 1, f"{k} psz {q}: a call is {w_ops} device ops, not 1")
 
     # one PyTorch call that computes K5's function: grid_sample over the
     # per-pixel sample positions (built outside the timed call; its taps
@@ -1080,6 +1141,23 @@ def main() -> None:
     check(lib_diff < 0.05, f"grid_sample is not K5's function: differs by {lib_diff}")
     library_ms = {"K5": device_ms(torch, k5_library, reps=5, what="grid_sample", per_call=("", 1))[0]}
     # (a grid_sample call is one device op; the indexing call below is a few)
+
+    # one PyTorch call that computes K6's function: grid_sample over the
+    # stack of the image and its two gradient planes (stacked, and the grid
+    # built, outside the timed call)
+    stack6 = torch.stack([g_lvl.img, g_lvl.dx, g_lvl.dy])[None].contiguous()
+
+    def k6_library():
+        return F.grid_sample(stack6, grid, mode="bilinear", padding_mode="border",
+                             align_corners=True)
+
+    lib6 = k6_library()[0].reshape(3, M, psz, psz)
+    lib6_diff = max(float((lib6[i] - w)[plain_at].abs().max()) for i, w in enumerate(
+        patch_gather.gather_patches_grad_plain(g_lvl.img, g_lvl.dx, g_lvl.dy, uv0, psz, pad)))
+    check(lib6_diff < 0.05, f"grid_sample is not K6's function: differs by {lib6_diff}")
+    library_ms["K6"] = device_ms(torch, k6_library, reps=5, what="grid_sample (K6)",
+                                 per_call=("", 1))[0]
+    del lib6
 
     # one PyTorch call that computes K7's function: advanced indexing of
     # the plane at row and column indices built outside the timed call
@@ -1169,11 +1247,17 @@ def main() -> None:
     for k, t in times.items():
         b_ms, b_by = bounds[k]
         lib = library_ms.get(k)
-        print(f"[{card}] {k} ({shapes[k]}{'' if k == 'K8' else f', {M} points'}): kernel {t['ms']:.4f} ms, wrapper's device ops "
-              f"{t['wrapper_ms']:.4f} ms (plain "
+        print(f"[{card}] {k} ({shapes[k]}{'' if k == 'K8' else f', {M} points'}): kernel {t['ms']:.4f} ms, wrapper's "
+              f"{t['wrapper_ops']:g} device ops {t['wrapper_ms']:.4f} ms (plain "
               f"{t['plain_ms']:.4f} ms; bound {b_ms:.4f} ms by {b_by}; library "
               f"{'none' if lib is None else f'{lib:.4f} ms'}); wall {t['wall_ms']:.4f} ms "
               f"(plain {t['plain_wall_ms']:.4f} ms)")
+
+    for t in size_times:
+        print(f"[{card}] {t['kernel']} (psz {t['psz']}, level 0 padded by {t['psz']}, {M} "
+              f"points): kernel {t['ms']:.4f} ms, wrapper {t['wrapper_ms']:.4f} ms in "
+              f"{t['wrapper_ops']:g} device op(s); bound {t['bound_ms']:.4f} ms by "
+              f"{t['bound_by']}")
 
     def entry(name, source, replaces, launches_n, err_, key):
         b_ms, b_by = bounds[key]
@@ -1239,6 +1323,7 @@ def main() -> None:
     print(json.dumps({"prefetch_tracker": {
         "launches": pre_launches, "ms_per_call_k1_k9_k9_k1": ab_ms,
         "kernel_ms_per_call": pre_own, "poses_equal_path_1": True}}))
+    print(json.dumps({"gathers_by_patch_side": size_times}))
     print(json.dumps({"kernels_off_main_path": off_path}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

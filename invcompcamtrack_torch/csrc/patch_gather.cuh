@@ -7,7 +7,7 @@
 
 namespace icgn {
 
-constexpr int kMaxPsz = 16;  // K6, and K5's staged variant: largest patch side
+constexpr float kFar = 1073741824.0f;  // 2^30, image/taps.py::_FAR
 
 // halo[a][b] = img[r0 - 1 + a][c0 - 1 + b] for the (psz+3)^2 halo of the
 // support at (r0, c0); reads are clamped into the plane, and a clamped
@@ -66,5 +66,28 @@ __device__ __forceinline__ void copy_window(const float* __restrict__ src,
 }
 
 inline int blocks_for(int M) { return (M + kWarpsPerBlock - 1) / kWarpsPerBlock; }
+
+// A support start from one centre coordinate, as image/taps.py's
+// bilinear_base and clamp_to_fit take it: ceil(v + 1e-5), clamped to
+// +-2^30 in float before the conversion to int, minus psz/2 + 1, plus
+// the padding, then moved inside [0, extent - (psz+1)].  A NaN centre
+// takes 0 (the card's conversion of a NaN) and so a start inside the
+// plane; its NaN weights make the point's output NaN.
+__device__ __forceinline__ int support_start(float v, int psz, int pad,
+                                             int extent) {
+  float f = ceilf(__fadd_rn(v, 1e-5f));
+  f = (f != f) ? 0.0f : fminf(fmaxf(f, -kFar), kFar);
+  const int s = (int)f - psz / 2 - 1 + pad;
+  return min(max(s, 0), extent - (psz + 1));
+}
+
+// The 4 weights of a centre (x, y), as bilinear_base forms them:
+// (rx ry, (1-rx) ry, rx (1-ry), (1-rx)(1-ry)) with rx = x - floor(x).
+__device__ __forceinline__ float4 bilinear_weights(float x, float y) {
+  const float rx = __fsub_rn(x, floorf(x)), ry = __fsub_rn(y, floorf(y));
+  const float gx = __fsub_rn(1.0f, rx), gy = __fsub_rn(1.0f, ry);
+  return make_float4(__fmul_rn(rx, ry), __fmul_rn(gx, ry), __fmul_rn(rx, gy),
+                     __fmul_rn(gx, gy));
+}
 
 }  // namespace icgn

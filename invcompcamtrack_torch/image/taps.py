@@ -16,7 +16,10 @@ points with ``pose.in_frustum``).
 
 The plain versions and the kernel wrappers of ``ops/patch_gather.py`` and
 the window cache of ``ops/window_sample.py`` take their indices and
-weights from here; this module imports nothing of the package.
+weights from here; this module imports nothing of the package.  The K5
+and K6 kernels repeat ``bilinear_base`` and ``clamp_to_fit`` operation for
+operation (``csrc/patch_gather.cuh``: ``support_start``,
+``bilinear_weights``): a change here is a change there.
 """
 
 from __future__ import annotations

@@ -46,10 +46,10 @@ _SIGNATURES = {
     "icgn_gather_prefetch": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     # img, flow, out, H, W, stream
     "icgn_warp_image": [_P, _P, _P, _I, _I, _P],
-    # img, Hp, Wp, idx, wts, out, M, psz, stream
-    "icgn_gather_patches": [_P, _I, _I, _P, _P, _P, _I, _I, _P],
-    # img, Hp, Wp, idx, wts, p_img, p_dx, p_dy, M, psz, pad, stream
-    "icgn_gather_patches_grad": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # img, Hp, Wp, centers, out, M, psz, pad, stream
+    "icgn_gather_patches": [_P, _I, _I, _P, _P, _I, _I, _I, _P],
+    # img, Hp, Wp, centers, p_img, p_dx, p_dy, M, psz, pad, stream
+    "icgn_gather_patches_grad": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
     # img, Wp, idx, out, M, wh, ww, stream
     "icgn_gather_windows": [_P, _I, _P, _P, _I, _I, _I, _P],
     # img_b, img_r, img_f, Hp, Wp, idx, wts, out, M, psz, stream

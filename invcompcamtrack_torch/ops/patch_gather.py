@@ -11,14 +11,19 @@
 - K7 ``gather_windows``: the ``(wh, ww)`` window at an integer origin.
 
 Each wrapper launches its CUDA kernel (``csrc/patch_gather.cu``) on CUDA
-tensors and its plain version (``*_plain``) on CPU tensors.  Both take
-their indices and weights from the same torch code
-(``image/taps.py::bilinear_base``, ``clamp_to_fit``), and both move a
-support or window that would leave the plane back inside it (the
-``dynamic_slice`` rule of the JAX package's XLA twins, which the TPU
-kernels do not follow at the frustum border).  The patch mean, when
-asked for, is removed by the wrapper with the plain version's own
-``torch.mean``, as the JAX package removes it outside its kernels.
+tensors and its plain version (``*_plain``) on CPU tensors.  The plain
+versions take their indices and weights from ``image/taps.py``
+(``bilinear_base``, ``clamp_to_fit``).  K5 and K6 take the centres: the
+kernel computes each point's support start and weights with that code's
+operations in its order, so a call without the patch mean is one device
+op.  K1 takes the starts and weights that ``support_of`` makes with that
+code (and so does K4, ``ops/ncc3.py``), K7 its clamped origins.  Kernels
+and plain versions move a support or window that would leave the plane
+back inside it (the ``dynamic_slice`` rule of the JAX package's XLA
+twins, which the TPU kernels do not follow at the frustum border).  The
+patch mean, when asked for, is removed by the wrapper with the plain
+version's own ``torch.mean``, as the JAX package removes it outside its
+kernels.
 """
 
 from __future__ import annotations
@@ -39,8 +44,8 @@ from invcompcamtrack_torch.ops import _build
 launches = {"gather_ref_grad_windows": 0, "gather_patches": 0,
             "gather_patches_grad": 0, "gather_windows": 0}
 
-# K6 (and K4) stage one halo or support per warp in shared memory; K5 does
-# up to this side and reads its taps without staging above it
+# the largest side of K6 and K4; K5 serves the sides up to it with 32/psz
+# points per warp and larger ones with one warp per point
 MAX_PSZ = 16
 
 
@@ -164,14 +169,14 @@ def gather_patches(img: torch.Tensor, centers: torch.Tensor, psz: int,
     _check_centers(name, img, centers)
     _check_psz(name, img, psz)
     lead = centers.shape[:-1]
-    idx, w = support_of(img, centers.reshape(-1, 2), psz, padding)
-    M = idx.shape[0]
+    flat = centers.reshape(-1, 2).contiguous()
+    M = flat.shape[0]
     out = torch.empty((M, psz, psz), dtype=torch.float32, device=img.device)
     if M > 0:
         lib = _build.load()
         code = lib.icgn_gather_patches(
-            img.data_ptr(), img.shape[0], img.shape[1], idx.data_ptr(),
-            w.data_ptr(), out.data_ptr(), M, psz, _build.stream_ptr(img.device))
+            img.data_ptr(), img.shape[0], img.shape[1], flat.data_ptr(),
+            out.data_ptr(), M, psz, padding, _build.stream_ptr(img.device))
         _build.check(lib, code, name)
         launches[name] += 1
     out = out.reshape(lead + (psz, psz))
@@ -194,17 +199,17 @@ def gather_patches_grad(img: torch.Tensor, dx: torch.Tensor, dy: torch.Tensor,
     _check_centers(name, img, centers)
     _check_psz(name, img, psz, MAX_PSZ)
     lead = centers.shape[:-1]
-    idx, w = support_of(img, centers.reshape(-1, 2), psz, padding)
-    M = idx.shape[0]
+    flat = centers.reshape(-1, 2).contiguous()
+    M = flat.shape[0]
     p_img = torch.empty((M, psz, psz), dtype=torch.float32, device=img.device)
     p_dx = torch.empty_like(p_img)
     p_dy = torch.empty_like(p_img)
     if M > 0:
         lib = _build.load()
         code = lib.icgn_gather_patches_grad(
-            img.data_ptr(), img.shape[0], img.shape[1], idx.data_ptr(),
-            w.data_ptr(), p_img.data_ptr(), p_dx.data_ptr(), p_dy.data_ptr(), M,
-            psz, padding, _build.stream_ptr(img.device))
+            img.data_ptr(), img.shape[0], img.shape[1], flat.data_ptr(),
+            p_img.data_ptr(), p_dx.data_ptr(), p_dy.data_ptr(), M, psz, padding,
+            _build.stream_ptr(img.device))
         _build.check(lib, code, name)
         launches[name] += 1
     shp = lead + (psz, psz)

@@ -14,10 +14,13 @@ Tolerances (kernel vs plain version, same inputs, both on the card):
 - K2: the 64-pixel sums of the mean and of (gx, gy) run in a warp
   butterfly: 1e-5 of sum |p_d * pdiff|.  K3: exact without the mean,
   4e-5 (about 1 ulp of intensities below 256) with it.
-- K5, K6: the plain version's float operations in its order; K7: a
-  copy.  Bit-exact, at psz 8, 4, 6 and 16, border centers included; K5
-  also at psz 18 and 32, which its unstaged variant serves (K6 refuses
-  them: it has no caller beyond 16).
+- K5, K6: the plain version's float operations in its order, the
+  support starts and weights included (the kernels take the centres);
+  K7: a copy.  Bit-exact, at psz 8, 4, 6 and 16, at border, far-outside,
+  integer, near-integer, negative and NaN centers (NaN where the plain
+  version gives NaN); K5 also at psz 18 and 32 (the descriptors' and the
+  flow benchmark's sides, compiled as the others) and 20 (any other side:
+  one warp per point); K6 refuses them: it has no caller beyond 16.
 - K8: the plain version's float operations in its order, through the
   non-contracting _rn intrinsics: bit-exact for every flow (smooth, a
   step, leaving the image, integer, infinite, NaN).
@@ -177,8 +180,21 @@ def test_track_pose_batch_on_card_matches_cpu(pair, cuda_device):
     torch.testing.assert_close(out["cuda"], out["cpu"], rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("psz", [8, 4, 6, 16, 18, 32])
-def test_k5_k6_k7_kernels_match_plain(pair, cuda_device, psz):
+def _edge_centers(w, h):
+    """Centres where the reference's rule bites: on integers, within 1e-5
+    below one (first column from ceil(x + 1e-5), weights from x - floor(x)),
+    just above one, at negative fractions, and NaN or infinite."""
+    out = []
+    for k in (0.0, 1.0, 7.0, 50.0, w - 1.0, w):
+        for d in (0.0, -5e-6, 1e-5, -1e-5, 2e-5, -0.25):
+            out.append([k + d, min(0.5 * k + d, h)])
+    nan, inf = float("nan"), float("inf")
+    return out + [[-0.3, -0.7], [-1.5, 3.25], [-2.0, -3.0], [nan, 5.0], [5.0, nan],
+                  [nan, nan], [inf, 3.0], [3.0, -inf]]
+
+
+@pytest.mark.parametrize("psz", [8, 4, 6, 16, 18, 20, 32])
+def test_k5_k6_k7_kernels_match_plain(pair, cuda_device, psz, monkeypatch):
     _, _, img_ref, _, _ = pair
     lvl = build_pyramid(t32(img_ref, cuda_device), 2, psz)[1]
     rng = np.random.default_rng(10)
@@ -186,22 +202,35 @@ def test_k5_k6_k7_kernels_match_plain(pair, cuda_device, psz):
     centers = t32(np.r_[np.c_[rng.uniform(0, w, 300), rng.uniform(0, h, 300)],
                         [[w, h], [0.2, h], [w, 3.5], [0, 0], [0, h], [w, 0],
                          [-40, -40], [1e9, 5], [5, -1e12]]], cuda_device)
+    c56 = torch.cat([centers, t32(_edge_centers(w, h), cuda_device)])
     win = psz + 8
     origins = ws.window_origin(centers + 1.25, psz, win, psz)
     n0 = dict(patch_gather.launches)
-    for pn in (False, True):
-        got = patch_gather.gather_patches(lvl.img, centers, psz, psz, pn)
-        want = patch_gather.gather_patches_plain(lvl.img, centers, psz, psz, pn)
-        torch.testing.assert_close(got, want, rtol=0, atol=0)
-        if psz > patch_gather.MAX_PSZ:          # K6 has no caller beyond 16
-            with pytest.raises(NotImplementedError, match="gather_patches takes"):
-                patch_gather.gather_patches_grad(lvl.img, lvl.dx, lvl.dy, centers, psz, psz)
-            continue
-        got = patch_gather.gather_patches_grad(lvl.img, lvl.dx, lvl.dy, centers, psz, psz, pn)
-        want = patch_gather.gather_patches_grad_plain(lvl.img, lvl.dx, lvl.dy, centers,
-                                                      psz, psz, pn)
-        for g, w_ in zip(got, want):
-            torch.testing.assert_close(g, w_, rtol=0, atol=0)
+    k6 = psz <= patch_gather.MAX_PSZ
+    want5 = {pn: patch_gather.gather_patches_plain(lvl.img, c56, psz, psz, pn)
+             for pn in (False, True)}
+    want6 = {pn: patch_gather.gather_patches_grad_plain(lvl.img, lvl.dx, lvl.dy, c56,
+                                                        psz, psz, pn)
+             for pn in (False, True) if k6}
+    assert bool(want5[False].isnan().any()) and not bool(want5[False][:len(centers)]
+                                                         .isnan().any())
+    with monkeypatch.context() as mp:
+        # K5 and K6 take the centres: no index or weight is made in torch,
+        # and a call without the patch mean is its launch alone
+        for helper in ("support_of", "bilinear_base", "clamp_to_fit"):
+            mp.setattr(patch_gather, helper, None)
+        for pn in (False, True):
+            n5 = patch_gather.launches["gather_patches"]
+            got = patch_gather.gather_patches(lvl.img, c56, psz, psz, pn)
+            assert patch_gather.launches["gather_patches"] == n5 + 1
+            torch.testing.assert_close(got, want5[pn], rtol=0, atol=0, equal_nan=True)
+            if not k6:                              # K6 has no caller beyond 16
+                with pytest.raises(NotImplementedError, match="gather_patches takes"):
+                    patch_gather.gather_patches_grad(lvl.img, lvl.dx, lvl.dy, c56, psz, psz)
+                continue
+            got = patch_gather.gather_patches_grad(lvl.img, lvl.dx, lvl.dy, c56, psz, psz, pn)
+            for g, w_ in zip(got, want6[pn]):
+                torch.testing.assert_close(g, w_, rtol=0, atol=0, equal_nan=True)
     for wh, ww in ((win, win), (3, win), (win, 5)):
         got = patch_gather.gather_windows(lvl.img, origins, wh, ww)
         want = patch_gather.gather_windows_plain(lvl.img, origins, wh, ww)
