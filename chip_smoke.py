@@ -33,8 +33,11 @@ and read just after:
 
 It checks that each path went through its kernels and solved its
 problem, compares the card with the port's CPU run, then times the paths
-and every kernel beside its plain version and its bound, and K5 and K6
-also at the other patch sides their callers use.
+and every kernel beside its plain version and its bound, K5 and K6 also
+at the other patch sides their callers use and K4 at psz 4 and 16.  The
+kernels that take the centres (K1, K4, K5, K6, K9) are also held at
+centres on, just below and just above integers and not finite, and each
+of their wrappers must be one device op.
 
 It imports no JAX.  It exits non-zero, and prints no result, when no
 CUDA card is present, when the package is missing, or when any phase
@@ -69,11 +72,12 @@ PEAK_F32_FLOPS = 67e12
 # intensities < 256.
 K1_TOL = 1e-4
 GATHER_TOL = 0.0
-# The centres at which K5 and K6, which compute the support start and the
-# weights themselves, must still equal the plain version: on an integer,
-# within 1e-5 below one (first column from ceil(x + 1e-5), weights from
-# x - floor(x)), just above one, at negative fractions, and not finite
-# (NaN patches, read from inside the plane).
+# The centres at which K1, K4, K5, K6 and K9, which compute the support
+# start and the weights themselves, must still equal the plain version
+# (K4 within its tolerance): on an integer, within 1e-5 below one (first
+# column from ceil(x + 1e-5), weights from x - floor(x)), just above one,
+# at negative fractions, and not finite (NaN patches and NaN scores, read
+# from inside the plane).
 EDGE_CENTERS = ([[k + d, 0.5 * k + d] for k in (0.0, 1.0, 7.0, 300.0, 1279.0)
                  for d in (0.0, -5e-6, 1e-5, -1e-5, 2e-5, -0.25)]
                 + [[-0.3, -0.7], [-1.5, 3.25], [-2.0, -3.0], [float("nan"), 5.0],
@@ -431,9 +435,13 @@ def main() -> None:
           f"(tol {K2_RTOL} x sum|p_d * pdiff|); K3 max abs err {k3_err} (tol {K3_TOL})")
 
     # ---- phase 3b: K4-K7 vs their plain versions, 25,600 points on level
-    # 0 (border and far-outside centers included); K5-K7 at the three
-    # shapes: psz 8 (the ``window_cache=False`` path), psz 4 on the pad-4
-    # pyramid with 12x12 windows (the psz-4 path) and psz 6
+    # 0 (border and far-outside centers included); K4 at psz 8 (the
+    # verifier's), 4 and 16, K5-K7 at the three shapes: psz 8 (the
+    # ``window_cache=False`` path), psz 4 on the pad-4 pyramid with 12x12
+    # windows (the psz-4 path) and psz 6.  K1, K4, K5, K6 and K9 compute
+    # each point's support start and weights from its centre, so they are
+    # also held at the centres where the reference's rule bites
+    # (EDGE_CENTERS), which stand in for points 8 onwards
     uv0 = k1_in["uv"]
     far = torch.tensor([[-50.0, -50.0], [-50.0, 3.0], [1e9, 5.0], [7.0, -1e12],
                         [1400.0, 800.0]], device=dev)
@@ -444,36 +452,57 @@ def main() -> None:
     uv_b[-len(far):] = far      # flat in all three planes: the pad corner
     uv_f[-len(far):] = far
     k4_args = (img0, img1, img2, uv_b, uv0, uv_f, psz, pad)
-    got4 = ncc3.ncc3_scores(*k4_args)
-    want4 = ncc3.ncc3_scores_plain(*k4_args)
-    pats = [patch_gather.gather_patches_plain(im, uv, psz, pad, patch_norm=True)
-            .reshape(M, -1) for im, uv in ((img0, uv_b), (img1, uv0), (img2, uv_f))]
-    nrm = [torch.clamp(torch.linalg.vector_norm(p, dim=-1), min=1e-15) for p in pats]
-    k4_err = 0.0
-    for (a, b), g, w in zip(((0, 1), (1, 2)), got4, want4):
-        scale = (pats[a] * pats[b]).abs().sum(-1) / (nrm[a] * nrm[b])
-        tol = K4_RTOL * scale + 8.0 * MEAN_EPS * (1.0 / nrm[a] + 1.0 / nrm[b])
-        err = (g - w).abs()
-        bad = int((err > tol).sum())
-        check(bad == 0, f"K4 pair {a}{b}: {bad} points out of tolerance, "
-              f"worst {float((err - tol).max())}")
-        check(bool(torch.isfinite(g).all()) and float(g.min()) >= 0.0
-              and float(g.max()) <= 1.0 + 1e-5, f"K4 pair {a}{b}: scores outside [0, 1]")
-        textured = (nrm[a] > 1.0) & (nrm[b] > 1.0)
-        k4_err = max(k4_err, float(err[textured].max()))
-    n_flat = int(((nrm[0] < 1e-3) | (nrm[1] < 1e-3) | (nrm[2] < 1e-3)).sum())
-    check(n_flat >= 2, f"K4: only {n_flat} flat patches among the inputs")
-    check(float(got4[0][-len(far):].max()) <= 1.0, "K4: flat patches out of range")
-    print(f"K4 vs plain: {M} points x 3 planes ({n_flat} with a flat patch), max abs "
-          f"err on textured patches {k4_err} (tol {K4_RTOL} x sum|p_a p_b|/(n_a n_b) "
-          f"+ {8 * MEAN_EPS:.1e} x (1/n_a + 1/n_b))")
-
-    # K5 and K6 compute each point's support start and weights from its
-    # centre, so they are also held at the centres where the reference's
-    # rule bites (EDGE_CENTERS), which stand in for points 8 onwards
-    uv_e = uv0.clone()
-    uv_e[8:8 + len(EDGE_CENTERS)] = torch.tensor(EDGE_CENTERS, device=dev)
+    n_edge = len(EDGE_CENTERS)
+    edge_t = torch.tensor(EDGE_CENTERS, device=dev)
     n_nonfinite = sum(1 for c in EDGE_CENTERS if not np.isfinite(c).all())
+    nonfinite = torch.zeros(M, dtype=torch.bool, device=dev)
+    nonfinite[8:8 + n_edge] = ~torch.isfinite(edge_t).all(-1)
+
+    def with_edges(uv):
+        out = uv.clone()
+        out[8:8 + n_edge] = edge_t
+        return out
+
+    uv_e = with_edges(uv0)
+    k4_err, k4_flat = 0.0, {}
+    for q in (psz, 4, 16):
+        planes4 = ((img0, img1, img2) if q == psz else
+                   tuple(build_pyramid(convert.tensor_from_numpy(im), 1, q)[0].img
+                         for im in (img_ref, img_new, img_2)))
+        uvs4 = (with_edges(uv_b), uv_e, with_edges(uv_f))
+        got4 = ncc3.ncc3_scores(*planes4, *uvs4, q, q)
+        want4 = ncc3.ncc3_scores_plain(*planes4, *uvs4, q, q)
+        pats = [patch_gather.gather_patches_plain(im, uv, q, q, patch_norm=True)
+                .reshape(M, -1) for im, uv in zip(planes4, uvs4)]
+        nrm = [torch.clamp(torch.linalg.vector_norm(p, dim=-1), min=1e-15) for p in pats]
+        for (a, b), g, w in zip(((0, 1), (1, 2)), got4, want4):
+            # NaN exactly at the non-finite centres, in both versions
+            check(bool(torch.equal(torch.isnan(g), torch.isnan(w)))
+                  and bool(torch.equal(torch.isnan(g), nonfinite)),
+                  f"K4 psz {q} pair {a}{b}: NaN at other places than plain or than the "
+                  f"{n_nonfinite} non-finite centres")
+            ok = ~nonfinite
+            g, w, na, nb = g[ok], w[ok], nrm[a][ok], nrm[b][ok]
+            scale = (pats[a][ok] * pats[b][ok]).abs().sum(-1) / (na * nb)
+            tol = K4_RTOL * scale + 8.0 * MEAN_EPS * (1.0 / na + 1.0 / nb)
+            err = (g - w).abs()
+            bad = int((err > tol).sum())
+            check(bad == 0, f"K4 psz {q} pair {a}{b}: {bad} points out of tolerance, "
+                  f"worst {float((err - tol).max())}")
+            check(bool(torch.isfinite(g).all()) and float(g.min()) >= 0.0
+                  and float(g.max()) <= 1.0 + 1e-5,
+                  f"K4 psz {q} pair {a}{b}: scores outside [0, 1]")
+            textured = (na > 1.0) & (nb > 1.0)
+            k4_err = max(k4_err, float(err[textured].max()))
+        k4_flat[q] = int(((nrm[0] < 1e-3) | (nrm[1] < 1e-3) | (nrm[2] < 1e-3)).sum())
+        check(k4_flat[q] >= 2, f"K4 psz {q}: only {k4_flat[q]} flat patches among the inputs")
+        check(float(got4[0][-len(far):].max()) <= 1.0, f"K4 psz {q}: flat patches out of range")
+    del got4, want4, pats
+    print(f"K4 vs plain: {M} points x 3 planes ({n_edge} of them at EDGE_CENTERS, "
+          f"{n_nonfinite} not finite: NaN in both versions), psz 8, 4 and 16 on level 0 "
+          f"padded by the side (points with a flat patch: {k4_flat}), max abs err on "
+          f"textured patches {k4_err} (tol {K4_RTOL} x sum|p_a p_b|/(n_a n_b) "
+          f"+ {8 * MEAN_EPS:.1e} x (1/n_a + 1/n_b))")
 
     def exact_gap(got, want, what):
         """max |got - want| over the numbers; NaN must stand at the same
@@ -483,6 +512,29 @@ def main() -> None:
         n_nan = int(nan_w.reshape(M, -1).any(-1).sum())
         check(n_nan == n_nonfinite, f"{what}: {n_nan} NaN points, not {n_nonfinite}")
         return float((torch.nan_to_num(got) - torch.nan_to_num(want)).abs().max())
+
+    # K1 and K9 at the edge centres, with and without the patch mean: bit
+    # for bit with the plain version and with each other
+    origins_e = ws.window_origin(uv_e + on_card(gen.uniform(-2.0, 2.0, (M, 2))), psz,
+                                 win, pad)
+    for pn in (False, True):
+        e_args = (pyr_ref[0], pyr_new[0].img, uv_e, origins_e, psz, pad, win, pn)
+        g1 = patch_gather.gather_ref_grad_windows(*e_args)
+        w1 = patch_gather.gather_ref_grad_windows_plain(*e_args)
+        g9 = patch_prefetch.gather_ref_grad_windows_prefetch(*e_args)
+        for part, a, b, c9 in zip(("p_img", "p_dx", "p_dy"), g1, w1, g9):
+            err = exact_gap(a, b, f"K1 at EDGE_CENTERS, patch_norm={pn}, {part}")
+            err9 = max(exact_gap(c9, a, f"K9 vs K1 at EDGE_CENTERS, {part}"),
+                       exact_gap(c9, b, f"K9 at EDGE_CENTERS, {part}"))
+            check(err == 0.0 and err9 == 0.0, f"K1 / K9 at EDGE_CENTERS, patch_norm={pn}, "
+                  f"{part}: max abs err {err} / {err9} (expected bit-exact)")
+        check(bool(torch.equal(g1[3], w1[3])) and bool(torch.equal(g9[3], w1[3])),
+              "K1 / K9 at EDGE_CENTERS: windows differ from the plain version's")
+    del g1, w1, g9
+    torch.cuda.synchronize()
+    print(f"K1, K9 vs plain and K9 vs K1 at level 0, {M} points ({n_edge} of them at "
+          f"EDGE_CENTERS), with and without the patch mean: 0.0, NaN exactly at the "
+          f"{n_nonfinite} points whose centre is not finite")
 
     gather_err = {"K5": 0.0, "K6": 0.0, "K7": 0.0}
     gather_in = {}
@@ -1079,15 +1131,19 @@ def main() -> None:
                     "plain_ms": device_ms(torch, plain, reps=5, what=k + " plain")[0],
                     "wall_ms": cuda_ms(torch, kern, reps=5, warmup=1),
                     "plain_wall_ms": cuda_ms(torch, plain, reps=5, warmup=1)}
-    # K5 and K6 take the centres: a call without the patch mean is one op
-    for k in ("K5", "K6"):
+    # K1, K4, K5, K6 and K9 take the centres: a call without the patch mean
+    # is one op
+    for k in ("K1", "K4", "K5", "K6", "K9"):
         check(times[k]["wrapper_ops"] == 1, f"{k}: a call is {times[k]['wrapper_ops']} "
               f"device ops, not 1")
 
-    # K5 and K6 at the other patch sides their callers use, on level 0 padded
-    # by the side: kernel and wrapper ms beside the bound
+    # K5 and K6 at the other patch sides their callers use, and K4 at psz 4
+    # and 16, on level 0 padded by the side: kernel and wrapper ms beside
+    # the bound
     def gather_bound(k, q, plane_bytes):
         npx_q = q * q
+        if k == "K4":
+            return bound(3 * plane_bytes + M * 24 + M * 8, M * (3 * npx_q * 11 + 4 * npx_q))
         if k == "K5":
             return bound(plane_bytes + M * 8 + M * npx_q * 4, M * npx_q * 7)
         return bound(plane_bytes + M * 8 + M * 3 * npx_q * 4,
@@ -1095,9 +1151,15 @@ def main() -> None:
 
     size_times = []
     for k, q in (("K5", 4), ("K5", 16), ("K5", 18), ("K5", 20), ("K5", 32), ("K6", 4),
-                 ("K6", 16)):
+                 ("K6", 16), ("K4", 4), ("K4", 16)):
         lv = gather_in[q]["lvl"]
-        if k == "K5":
+        if k == "K4":
+            planes4 = (lv.img, *(build_pyramid(convert.tensor_from_numpy(im), 1, q)[0].img
+                                 for im in (img_new, img_2)))
+
+            def call(planes4=planes4, q=q):
+                return ncc3.ncc3_scores(*planes4, uv_b, uv0, uv_f, q, q)
+        elif k == "K5":
             def call(lv=lv, q=q):
                 return patch_gather.gather_patches(lv.img, uv0, q, q)
         else:

@@ -13,14 +13,17 @@
 //
 // Inputs:
 //   planes        padded level planes (Hp, Wp) f32
-//   K1, K7: idx   int32 support (and window) row/col per point, prepared
-//                 by ops/patch_gather.py with the plain versions' code and
-//                 already moved inside the plane (dynamic_slice rule);
-//                 K1's wts (M, 4) f32, the 4 constant bilinear weights
-//   K5, K6: centers (M, 2) f32 (x, y), unpadded: each point's support
+//   K1, K5, K6: centers (M, 2) f32 (x, y), unpadded: each point's support
 //                 start and weights are computed here, operation for
 //                 operation as image/taps.py computes them
 //                 (support_start, bilinear_weights in patch_gather.cuh)
+//   K1: origins   (M, 2) int32 (row, col) window origins in the padded
+//                 plane, as solver/icgn.py::_entry_origins makes them; the
+//                 kernel moves each inside the plane (dual_index)
+//   K7: idx       int32 window row/col per point, prepared by
+//                 ops/patch_gather.py and already moved inside the plane
+// Supports and windows that would leave the plane are moved back inside
+// it: the dynamic_slice rule of the JAX package's XLA twins.
 // Outputs: patches (M, psz*psz), windows (M, wh*ww), all f32.
 //
 // The gradients are not gathered from the pyramid's dx/dy planes but
@@ -33,10 +36,12 @@
 // K1 and K7 on an H100: bytes written.  K1 writes 448 floats per point
 // (46 MB at 25,600 points), K7 wh*ww; the reads come from a level plane
 // that stays in the 50 MB L2 (the padded 1296x736 level 0 is 3.8 MB).
-// Design: one warp per point, eight points per block; K1 stages its halo
-// in shared memory, then each lane computes every 32nd output pixel and
-// writes it with coalesced stores; windows are copied 32 floats per
-// instruction.
+// Design: one warp per point, eight points per block; K1 computes its
+// point's support start, weights and window origin from the centre and
+// the origin it is given (so a call is one launch, with no torch ops
+// before it), stages its halo in shared memory, then each lane computes
+// every 32nd output pixel and writes it with coalesced stores; windows
+// are copied 32 floats per instruction.
 //
 // K5 and K6 write only psz^2 and 3 psz^2 floats per point, so a fixed
 // cost per point bounded their first design (one warp per point as K1):
@@ -58,9 +63,6 @@
 //
 // No per-point VMEM plan, lane alignment or two-phase plane copies of the
 // TPU kernels have a counterpart here.
-#include <cstdint>
-#include <type_traits>
-
 #include "patch_gather.cuh"
 
 namespace icgn {
@@ -69,8 +71,8 @@ namespace icgn {
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 gather_ref_grad_windows_kernel(const float* __restrict__ rimg,
                                const float* __restrict__ qimg, int Hp, int Wp,
-                               const int4* __restrict__ idx,
-                               const float4* __restrict__ wts,
+                               const float2* __restrict__ centers,
+                               const int2* __restrict__ origins,
                                float* __restrict__ p_img,
                                float* __restrict__ p_dx,
                                float* __restrict__ p_dy,
@@ -81,12 +83,15 @@ gather_ref_grad_windows_kernel(const float* __restrict__ rimg,
   const int m = blockIdx.x * kWarpsPerBlock + warp;
   if (m >= M) return;  // warps are independent: no block barrier below
 
-  const int4 id = idx[m];  // (support row, support col, window row, col)
+  const float2 c = centers[m];
+  // (support row, support col, window row, window col)
+  const int4 id = dual_index(c, origins[m], Hp, Wp, pad);
   float* halo = halo_all[warp];
   load_halo(rimg, Hp, Wp, id.x, id.y, kPsz, halo, lane);
   const size_t out0 = (size_t)m * kNpix;
-  patch_grad_from_halo(halo, Hp, Wp, id.x, id.y, kPsz, pad, wts[m],
-                       p_img + out0, p_dx + out0, p_dy + out0, lane);
+  patch_grad_from_halo(halo, Hp, Wp, id.x, id.y, kPsz, pad,
+                       bilinear_weights(c.x, c.y), p_img + out0, p_dx + out0,
+                       p_dy + out0, lane);
   copy_window(qimg + (size_t)id.z * Wp + id.w, Wp, kWin, kWin,
               qwin + (size_t)m * (kWin * kWin), lane);
 }
@@ -218,19 +223,6 @@ gather_patches_direct_kernel(const float* __restrict__ img, int Hp, int Wp,
   }
 }
 
-// blocks of kWarpsPerBlock warps for M points at 32/psz points per warp
-inline int group_blocks_for(int M, int psz) {
-  const int per_block = kWarpsPerBlock * (32 / psz);
-  return (M + per_block - 1) / per_block;
-}
-
-// f(std::integral_constant<int, psz>{}) where psz is one of Sides; false
-// for any other psz
-template <int... Sides, class F>
-bool with_side(int psz, F&& f) {
-  return ((psz == Sides && (f(std::integral_constant<int, Sides>{}), true)) || ...);
-}
-
 // ------------------------------------------------------------------ K7
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 gather_windows_kernel(const float* __restrict__ img, int Wp,
@@ -248,14 +240,15 @@ gather_windows_kernel(const float* __restrict__ img, int Wp,
 }  // namespace icgn
 
 extern "C" int icgn_gather_ref_grad_windows(
-    const float* rimg, const float* qimg, int Hp, int Wp, const int* idx,
-    const float* wts, float* p_img, float* p_dx, float* p_dy, float* qwin,
+    const float* rimg, const float* qimg, int Hp, int Wp, const float* centers,
+    const int* origins, float* p_img, float* p_dx, float* p_dy, float* qwin,
     int M, int pad, void* stream) {
+  if (Hp < icgn::kWin || Wp < icgn::kWin) return (int)cudaErrorInvalidValue;
   icgn::gather_ref_grad_windows_kernel<<<icgn::blocks_for(M),
                                          icgn::kWarpsPerBlock * 32, 0,
                                          (cudaStream_t)stream>>>(
-      rimg, qimg, Hp, Wp, reinterpret_cast<const int4*>(idx),
-      reinterpret_cast<const float4*>(wts), p_img, p_dx, p_dy, qwin, M, pad);
+      rimg, qimg, Hp, Wp, reinterpret_cast<const float2*>(centers),
+      reinterpret_cast<const int2*>(origins), p_img, p_dx, p_dy, qwin, M, pad);
   return (int)cudaGetLastError();
 }
 

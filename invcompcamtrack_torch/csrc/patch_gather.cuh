@@ -1,7 +1,10 @@
-// Device functions shared by the gathers: K1, K5, K6, K7
+// Device functions shared by the gathers, K1, K5, K6, K7
 // (patch_gather.cu) and K9 (patch_prefetch.cu), which must equal K1 bit
-// for bit and therefore runs K1's own arithmetic on its staged copies.
+// for bit and therefore runs K1's own arithmetic on its staged copies,
+// and by the NCC scorer K4 (ncc3.cu), whose patch pixels are K5's.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -67,6 +70,19 @@ __device__ __forceinline__ void copy_window(const float* __restrict__ src,
 
 inline int blocks_for(int M) { return (M + kWarpsPerBlock - 1) / kWarpsPerBlock; }
 
+// blocks of kWarpsPerBlock warps for M points at 32/lanes points per warp
+inline int group_blocks_for(int M, int lanes) {
+  const int per_block = kWarpsPerBlock * (32 / lanes);
+  return (M + per_block - 1) / per_block;
+}
+
+// f(std::integral_constant<int, psz>{}) where psz is one of Sides; false
+// for any other psz
+template <int... Sides, class F>
+bool with_side(int psz, F&& f) {
+  return ((psz == Sides && (f(std::integral_constant<int, Sides>{}), true)) || ...);
+}
+
 // A support start from one centre coordinate, as image/taps.py's
 // bilinear_base and clamp_to_fit take it: ceil(v + 1e-5), clamped to
 // +-2^30 in float before the conversion to int, minus psz/2 + 1, plus
@@ -88,6 +104,17 @@ __device__ __forceinline__ float4 bilinear_weights(float x, float y) {
   const float gx = __fsub_rn(1.0f, rx), gy = __fsub_rn(1.0f, ry);
   return make_float4(__fmul_rn(rx, ry), __fmul_rn(gx, ry), __fmul_rn(rx, gy),
                      __fmul_rn(gx, gy));
+}
+
+// K1's and K9's indices of one point from its centre (x, y) and its
+// window origin (row, col): (support row, support col, window row, window
+// col), each moved inside the plane as image/taps.py::clamp_to_fit moves
+// it.
+__device__ __forceinline__ int4 dual_index(float2 c, int2 o, int Hp, int Wp,
+                                           int pad) {
+  return make_int4(support_start(c.y, kPsz, pad, Hp),
+                   support_start(c.x, kPsz, pad, Wp),
+                   min(max(o.x, 0), Hp - kWin), min(max(o.y, 0), Wp - kWin));
 }
 
 }  // namespace icgn

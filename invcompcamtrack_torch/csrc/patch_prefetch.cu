@@ -20,9 +20,14 @@
 // functions (patch_gather.cuh) on the same floats, so the outputs equal
 // K1's exactly.
 //
-// Inputs and outputs are K1's (ops/patch_gather.py prepares them): idx
-// holds each point's support and window origin, already moved inside the
-// plane (the dynamic_slice rule of the XLA twin; not the TPU kernel's clip).
+// Inputs and outputs are K1's: centers (M, 2) f32 (x, y), unpadded, and
+// origins (M, 2) int32 window origins in the padded plane.  Each point's
+// support start, weights and window origin come from K1's own device
+// functions (dual_index, bilinear_weights in patch_gather.cuh), with the
+// support and the window moved inside the plane (the dynamic_slice rule
+// of the XLA twin; not the TPU kernel's clip).  A warp computes point
+// i+1's indices just before it starts that point's copies, one point
+// ahead of the arithmetic, as the copies are.
 //
 // What bounds it on an H100: bytes written, as K1 (448 floats per point).
 // The copies are 4 bytes each: a window starts at an arbitrary column, so
@@ -78,8 +83,8 @@ __device__ __forceinline__ void start_copies(const float* __restrict__ rimg,
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 gather_prefetch_kernel(const float* __restrict__ rimg,
                        const float* __restrict__ qimg, int Hp, int Wp,
-                       const int4* __restrict__ idx,
-                       const float4* __restrict__ wts, float* __restrict__ p_img,
+                       const float2* __restrict__ centers,
+                       const int2* __restrict__ origins, float* __restrict__ p_img,
                        float* __restrict__ p_dx, float* __restrict__ p_dy,
                        float* __restrict__ qwin, int M, int pad) {
   __shared__ float halo_all[kWarpsPerBlock][kStages][kHalo];
@@ -90,15 +95,18 @@ gather_prefetch_kernel(const float* __restrict__ rimg,
   const int stride = gridDim.x * kWarpsPerBlock;
   if (first >= M) return;  // warps are independent: no block barrier below
 
-  int4 id = idx[first];
+  float2 c = centers[first];
+  int4 id = dual_index(c, origins[first], Hp, Wp, pad);
   start_copies(rimg, qimg, Hp, Wp, id, halo_all[warp][0], win_all[warp][0], lane);
   cp_async_commit();
   int stage = 0;
   for (int m = first; m < M; m += stride) {
     const int next = m + stride;
+    float2 c_next = c;
     int4 id_next = id;
     if (next < M) {
-      id_next = idx[next];
+      c_next = centers[next];
+      id_next = dual_index(c_next, origins[next], Hp, Wp, pad);
       start_copies(rimg, qimg, Hp, Wp, id_next, halo_all[warp][stage ^ 1],
                   win_all[warp][stage ^ 1], lane);
     }
@@ -107,10 +115,12 @@ gather_prefetch_kernel(const float* __restrict__ rimg,
     __syncwarp();        // and every lane's copies are visible to the warp
     const size_t out0 = (size_t)m * kNpix;
     patch_grad_from_halo(halo_all[warp][stage], Hp, Wp, id.x, id.y, kPsz, pad,
-                         wts[m], p_img + out0, p_dx + out0, p_dy + out0, lane);
+                         bilinear_weights(c.x, c.y), p_img + out0, p_dx + out0,
+                         p_dy + out0, lane);
     copy_window(win_all[warp][stage], kWin, kWin, kWin,
                 qwin + (size_t)m * kWinPix, lane);
     __syncwarp();        // the stage is free before the next copies reuse it
+    c = c_next;
     id = id_next;
     stage ^= 1;
   }
@@ -120,9 +130,11 @@ gather_prefetch_kernel(const float* __restrict__ rimg,
 }  // namespace icgn
 
 extern "C" int icgn_gather_prefetch(const float* rimg, const float* qimg, int Hp,
-                                    int Wp, const int* idx, const float* wts,
-                                    float* p_img, float* p_dx, float* p_dy,
-                                    float* qwin, int M, int pad, void* stream) {
+                                    int Wp, const float* centers,
+                                    const int* origins, float* p_img,
+                                    float* p_dx, float* p_dy, float* qwin,
+                                    int M, int pad, void* stream) {
+  if (Hp < icgn::kWin || Wp < icgn::kWin) return (int)cudaErrorInvalidValue;
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
@@ -131,7 +143,7 @@ extern "C" int icgn_gather_prefetch(const float* rimg, const float* qimg, int Hp
   const int blocks = std::min(icgn::blocks_for(M), sms * icgn::kPrefetchBlocksPerSM);
   icgn::gather_prefetch_kernel<<<blocks, icgn::kWarpsPerBlock * 32, 0,
                                  (cudaStream_t)stream>>>(
-      rimg, qimg, Hp, Wp, reinterpret_cast<const int4*>(idx),
-      reinterpret_cast<const float4*>(wts), p_img, p_dx, p_dy, qwin, M, pad);
+      rimg, qimg, Hp, Wp, reinterpret_cast<const float2*>(centers),
+      reinterpret_cast<const int2*>(origins), p_img, p_dx, p_dy, qwin, M, pad);
   return (int)cudaGetLastError();
 }

@@ -39,7 +39,8 @@ COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # rimg, qimg, Hp, Wp, idx, wts, p_img, p_dx, p_dy, qwin, M, pad, stream
+    # rimg, qimg, Hp, Wp, centers, origins, p_img, p_dx, p_dy, qwin, M, pad,
+    # stream
     "icgn_gather_ref_grad_windows": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P,
                                      _I, _I, _P],
     # K9 takes K1's arguments
@@ -52,8 +53,8 @@ _SIGNATURES = {
     "icgn_gather_patches_grad": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
     # img, Wp, idx, out, M, wh, ww, stream
     "icgn_gather_windows": [_P, _I, _P, _P, _I, _I, _I, _P],
-    # img_b, img_r, img_f, Hp, Wp, idx, wts, out, M, psz, stream
-    "icgn_ncc3_scores": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _P],
+    # img_b, img_r, img_f, Hp, Wp, uv_b, uv_r, uv_f, out, M, psz, pad, stream
+    "icgn_ncc3_scores": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
     # qwin, ref, pdx, pdy, row_w, col_w, wts, valid, out, M, norm, bf16, stream
     "icgn_resample_project": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # qwin, ref, row_w, col_w, wts, valid, out, M, norm, bf16, stream

@@ -14,10 +14,13 @@ The JAX package falls back to its XLA path when the three planes exceed
 its kernel's fast memory (``ncc3_available``); here the kernel reads the
 planes from device memory and applies to every float32 CUDA image.
 
-Support starts and weights come from the plain version's own torch code,
-so kernel and plain version place every support alike, border and
-far-outside centers included (callers mask those; a center must be
-finite).
+The kernel takes the three centre arrays and computes each support start
+and its weights with K5's device functions, which repeat the plain
+version's ``image/taps.py`` operations in their order: kernel and plain
+version place every support alike and form every patch pixel alike,
+border and far-outside centres included (callers mask those).  A centre
+that is not finite gives NaN in each score it enters, in both.  A call
+is one device op.
 """
 
 from __future__ import annotations
@@ -30,7 +33,6 @@ from invcompcamtrack_torch.ops.patch_gather import (
     MAX_PSZ,
     on_card,
     require,
-    support_of,
     gather_patches_plain,
 )
 
@@ -54,7 +56,7 @@ def ncc3_scores(img_back: torch.Tensor, img_ref: torch.Tensor,
                 uv_ref: torch.Tensor, uv_fwd: torch.Tensor,
                 psz: int, padding: int):
     """K4.  imgs: (Hp, Wp) f32 padded pyramid levels of one shape; uv_*:
-    (..., 2) f32 finite pixel centers of one shape -> two (...,) f32
+    (..., 2) f32 unpadded pixel centres of one shape -> two (...,) f32
     tensors.  CPU tensors -> plain version, CUDA tensors -> kernel."""
     name = "ncc3_scores"
     if not on_card(name, img_ref):
@@ -79,17 +81,14 @@ def ncc3_scores(img_back: torch.Tensor, img_ref: torch.Tensor,
             f"plane {tuple(img_ref.shape)} is smaller than the patch support")
 
     lead = uv_ref.shape[:-1]
-    packs = [support_of(img_ref, uv.reshape(-1, 2), psz, padding)
-             for uv in (uv_back, uv_ref, uv_fwd)]
-    idx = torch.cat([p[0] for p in packs], dim=1).contiguous()   # (M, 6)
-    wts = torch.cat([p[1] for p in packs], dim=1).contiguous()   # (M, 12)
-    M = idx.shape[0]
+    flat = [uv.reshape(-1, 2).contiguous() for uv in (uv_back, uv_ref, uv_fwd)]
+    M = flat[1].shape[0]
     out = torch.empty((M, 2), dtype=torch.float32, device=dev)
     if M > 0:
         lib = _build.load()
         code = lib.icgn_ncc3_scores(
             img_back.data_ptr(), img_ref.data_ptr(), img_fwd.data_ptr(), Hp, Wp,
-            idx.data_ptr(), wts.data_ptr(), out.data_ptr(), M, psz,
+            *(f.data_ptr() for f in flat), out.data_ptr(), M, psz, padding,
             _build.stream_ptr(dev))
         _build.check(lib, code, name)
         launches[name] += 1

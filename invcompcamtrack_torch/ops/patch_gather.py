@@ -13,17 +13,17 @@
 Each wrapper launches its CUDA kernel (``csrc/patch_gather.cu``) on CUDA
 tensors and its plain version (``*_plain``) on CPU tensors.  The plain
 versions take their indices and weights from ``image/taps.py``
-(``bilinear_base``, ``clamp_to_fit``).  K5 and K6 take the centres: the
-kernel computes each point's support start and weights with that code's
-operations in its order, so a call without the patch mean is one device
-op.  K1 takes the starts and weights that ``support_of`` makes with that
-code (and so does K4, ``ops/ncc3.py``), K7 its clamped origins.  Kernels
-and plain versions move a support or window that would leave the plane
-back inside it (the ``dynamic_slice`` rule of the JAX package's XLA
-twins, which the TPU kernels do not follow at the frustum border).  The
-patch mean, when asked for, is removed by the wrapper with the plain
-version's own ``torch.mean``, as the JAX package removes it outside its
-kernels.
+(``bilinear_base``, ``clamp_to_fit``).  K1, K5 and K6 take the centres
+(K1 also the window origins), and so do K4 (``ops/ncc3.py``) and K9
+(``ops/patch_prefetch.py``): the kernel computes each point's support
+start, weights and clamped window origin with that code's operations in
+its order, so a call without the patch mean is one device op.  K7 takes
+its clamped origins.  Kernels and plain versions move a support or
+window that would leave the plane back inside it (the ``dynamic_slice``
+rule of the JAX package's XLA twins, which the TPU kernels do not follow
+at the frustum border).  The patch mean, when asked for, is removed by
+the wrapper with the plain version's own ``torch.mean``, as the JAX
+package removes it outside its kernels.
 """
 
 from __future__ import annotations
@@ -148,16 +148,6 @@ def _check_psz(name: str, img: torch.Tensor, psz: int,
             f"plane {tuple(img.shape)} is smaller than the patch support")
 
 
-def support_of(img: torch.Tensor, flat_c: torch.Tensor, psz: int, padding: int):
-    """Support starts (M, 2) int32, moved inside the plane, and the 4
-    weights (M, 4), both contiguous."""
-    Hp, Wp = img.shape
-    row0, col0, w = bilinear_base(flat_c, psz, padding)
-    idx = torch.stack([clamp_to_fit(row0, psz + 1, Hp),
-                       clamp_to_fit(col0, psz + 1, Wp)], dim=1)
-    return idx.to(torch.int32).contiguous(), w.contiguous()
-
-
 def gather_patches(img: torch.Tensor, centers: torch.Tensor, psz: int,
                    padding: int, patch_norm: bool = False) -> torch.Tensor:
     """K5.  img (Hp, Wp) f32 padded; centers (..., 2) f32 unpadded coords
@@ -250,10 +240,11 @@ def dual_gather(name: str, entry: str, counts: dict, ref: PyramidLevel,
                 query_img: torch.Tensor, centers: torch.Tensor,
                 origins: torch.Tensor, psz: int, padding: int, win: int,
                 patch_norm: bool):
-    """Check, prepare and launch a dual-gather kernel on CUDA tensors: K1
+    """Check and launch a dual-gather kernel on CUDA tensors: K1
     (``icgn_gather_ref_grad_windows``) or K9 (``icgn_gather_prefetch``,
-    ``ops/patch_prefetch.py``), which take the same arguments and give the
-    same outputs.  ``counts[name]`` is the wrapper's launch count."""
+    ``ops/patch_prefetch.py``), which take the same arguments, the centres
+    and the window origins, and give the same outputs.  ``counts[name]``
+    is the wrapper's launch count."""
     img = ref.img
     if (psz, win) != (_build.PSZ, _build.WIN):
         raise NotImplementedError(
@@ -273,12 +264,9 @@ def dual_gather(name: str, entry: str, counts: dict, ref: PyramidLevel,
             f"than the {win}x{win} window")
 
     lead = centers.shape[:-1]
-    flat_o = origins.reshape(-1, 2)
-    sup, w = support_of(img, centers.reshape(-1, 2), psz, padding)
-    idx = torch.cat([sup, torch.stack([clamp_to_fit(flat_o[:, 0], win, Hp),
-                                       clamp_to_fit(flat_o[:, 1], win, Wp)], dim=1)],
-                    dim=1).contiguous()
-    M = idx.shape[0]
+    flat_c = centers.reshape(-1, 2).contiguous()
+    flat_o = origins.reshape(-1, 2).contiguous()
+    M = flat_c.shape[0]
     p_img = torch.empty((M, psz, psz), dtype=torch.float32, device=img.device)
     p_dx = torch.empty_like(p_img)
     p_dy = torch.empty_like(p_img)
@@ -286,8 +274,8 @@ def dual_gather(name: str, entry: str, counts: dict, ref: PyramidLevel,
     if M > 0:
         lib = _build.load()
         code = getattr(lib, entry)(
-            img.data_ptr(), query_img.data_ptr(), Hp, Wp, idx.data_ptr(),
-            w.data_ptr(), p_img.data_ptr(), p_dx.data_ptr(), p_dy.data_ptr(),
+            img.data_ptr(), query_img.data_ptr(), Hp, Wp, flat_c.data_ptr(),
+            flat_o.data_ptr(), p_img.data_ptr(), p_dx.data_ptr(), p_dy.data_ptr(),
             qwin.data_ptr(), M, padding, _build.stream_ptr(img.device))
         _build.check(lib, code, name)
         counts[name] += 1

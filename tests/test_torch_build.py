@@ -1,16 +1,16 @@
 """The C interface of the port's CUDA kernels against the table that
-``ops/_build.py`` declares to ctypes, and the K5 and K6 wrappers' calls
-into it.
+``ops/_build.py`` declares to ctypes, and the K1, K4, K5, K6 and K9
+wrappers' calls into it.
 
 A stale entry in ``_build._SIGNATURES`` makes ctypes pass a truncated
 pointer or a wrong integer, and only a run on the card would show it.  So
 every ``extern "C" int icgn_...(...)`` of ``csrc/*.cu`` is parsed here and
 held to the table: the same names, the same number of arguments, each
 pointer (``void*`` included) declared ``c_void_p`` and each ``int``
-``c_int``.  Then the K5 and K6 wrappers run their card path on CPU tensors
-against a stand-in library that records the call: what they pass, and
-that they prepare no indices or weights (on the card such a call is one
-device op).
+``c_int``.  Then the wrappers of the kernels that take the centres (K1,
+K4, K5, K6, K9) run their card path on CPU tensors against a stand-in
+library that records the call: what they pass, and that they prepare no
+indices or weights (on the card such a call is one device op).
 """
 
 import ctypes
@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from invcompcamtrack_torch.image.pyramid import build_pyramid
-from invcompcamtrack_torch.ops import _build, patch_gather
+from invcompcamtrack_torch.ops import _build, ncc3, patch_gather, patch_prefetch
 
 torch.set_num_threads(1)
 
@@ -77,47 +77,97 @@ def _no_prep(*_args, **_kw):
     raise AssertionError("the wrapper prepared indices or weights in torch")
 
 
-@pytest.mark.parametrize("kernel", ["gather_patches", "gather_patches_grad"])
+# kernel -> (module, launch count key, C entry point)
+_CENTRE_KERNELS = {
+    "gather_patches": (patch_gather, "gather_patches", "icgn_gather_patches"),
+    "gather_patches_grad": (patch_gather, "gather_patches_grad", "icgn_gather_patches_grad"),
+    "gather_ref_grad_windows": (patch_gather, "gather_ref_grad_windows",
+                                "icgn_gather_ref_grad_windows"),
+    "gather_ref_grad_windows_prefetch": (patch_prefetch, "gather_ref_grad_windows_prefetch",
+                                         "icgn_gather_prefetch"),
+    "ncc3_scores": (ncc3, "ncc3_scores", "icgn_ncc3_scores"),
+}
+
+
+@pytest.mark.parametrize("kernel", list(_CENTRE_KERNELS))
 def test_k5_k6_wrappers_pass_centres_and_nothing_else(monkeypatch, kernel):
+    """K5, K6 and the kernels that took their indices from torch before
+    (K1, K9, K4): one entry call, the centres (and K1's and K9's window
+    origins) passed as they are, nothing computed in torch before it."""
     lib = _Recorder()
+    mod, key, entry_name = _CENTRE_KERNELS[kernel]
     monkeypatch.setattr(patch_gather, "on_card", lambda name, t: True)
-    monkeypatch.setattr(patch_gather, "support_of", _no_prep)
-    monkeypatch.setattr(patch_gather, "bilinear_base", _no_prep)
+    monkeypatch.setattr(ncc3, "on_card", lambda name, t: True)
+    for helper in ("bilinear_base", "clamp_to_fit"):
+        monkeypatch.setattr(patch_gather, helper, _no_prep)
     monkeypatch.setattr(_build, "load", lambda: lib)
     monkeypatch.setattr(_build, "stream_ptr", lambda device: 1234)
-    monkeypatch.setattr(patch_gather, "launches", dict.fromkeys(patch_gather.launches, 0))
+    counts = {m: dict.fromkeys(m.launches, 0) for m in (patch_gather, patch_prefetch, ncc3)}
+    for m, c in counts.items():
+        monkeypatch.setattr(m, "launches", c)
     rng = np.random.default_rng(16)
-    psz, pad = 6, 6
-    lvl = build_pyramid(torch.tensor(rng.uniform(0, 255, (40, 56)).astype(np.float32)),
-                        1, pad)[0]
+    psz = 8 if kernel.startswith("gather_ref") else 6
+    pad = psz
+    lvls = [build_pyramid(torch.tensor(rng.uniform(0, 255, (40, 56)).astype(np.float32)),
+                          1, pad)[0] for _ in range(3)]
+    lvl = lvls[0]
     centers = torch.tensor(rng.uniform(0, 50, (3, 7, 2)).astype(np.float32))
-    planes = (lvl.img,) if kernel == "gather_patches" else (lvl.img, lvl.dx, lvl.dy)
+    origins = torch.tensor(rng.integers(-3, 50, (3, 7, 2)).astype(np.int32))
+    uvs = (centers + 0.5, centers, centers - 0.25)
+    if kernel == "gather_patches":
+        args = (lvl.img, centers, psz, pad)
+    elif kernel == "gather_patches_grad":
+        args = (lvl.img, lvl.dx, lvl.dy, centers, psz, pad)
+    elif kernel == "ncc3_scores":
+        args = (*(lv.img for lv in lvls), *uvs, psz, pad)
+    else:
+        args = (lvl, lvls[1].img, centers, origins, psz, pad, 16)
 
     def ops_of(patch_norm):
+        kw = {} if kernel == "ncc3_scores" else {"patch_norm": patch_norm}
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-            out = getattr(patch_gather, kernel)(*planes, centers, psz, pad, patch_norm)
+            out = getattr(mod, kernel)(*args, **kw)
         return out, {e.name for e in prof.events()}
 
     out, ran = ops_of(False)
     # what ran besides the call: allocation and views, no arithmetic
     assert "aten::empty" in ran
-    assert ran <= {"aten::empty", "aten::empty_like", "aten::empty_strided", "aten::view",
-                   "aten::reshape", "aten::_reshape_alias", "aten::alias",
-                   "aten::as_strided"}, ran
-    (entry, args), = lib.calls
-    assert entry == "icgn_" + kernel
-    assert len(args) == len(_build._SIGNATURES[entry])
-    for a, ctype in zip(args, _build._SIGNATURES[entry]):
+    views = {"aten::view", "aten::reshape", "aten::_reshape_alias", "aten::alias",
+             "aten::as_strided"} | ({"aten::select"} if kernel == "ncc3_scores" else set())
+    assert ran <= {"aten::empty", "aten::empty_like", "aten::empty_strided"} | views, ran
+    (entry, args_c), = lib.calls
+    assert entry == entry_name
+    assert len(args_c) == len(_build._SIGNATURES[entry])
+    for a, ctype in zip(args_c, _build._SIGNATURES[entry]):
         ctype(a)                                    # each converts as declared
     M = centers.shape[0] * centers.shape[1]
-    outs = (out,) if kernel == "gather_patches" else out
     Hp, Wp = lvl.img.shape
-    assert args[:4] == (lvl.img.data_ptr(), Hp, Wp, centers.data_ptr())
-    assert args[4:4 + len(outs)] == tuple(o.data_ptr() for o in outs)
-    assert args[-4:] == (M, psz, pad, 1234)
-    for o in outs:
-        assert o.shape == (3, 7, psz, psz) and o.dtype == torch.float32
-    assert patch_gather.launches == {**dict.fromkeys(patch_gather.launches, 0), kernel: 1}
+    if kernel == "ncc3_scores":
+        assert args_c[:5] == (*(lv.img.data_ptr() for lv in lvls), Hp, Wp)
+        assert args_c[5:8] == tuple(u.data_ptr() for u in uvs)
+        assert args_c[-4:] == (M, psz, pad, 1234)
+        outs = out
+        for o in outs:
+            assert o.shape == (3, 7) and o.dtype == torch.float32
+    elif kernel.startswith("gather_ref"):
+        assert args_c[:6] == (lvl.img.data_ptr(), lvls[1].img.data_ptr(), Hp, Wp,
+                              centers.data_ptr(), origins.data_ptr())
+        assert args_c[6:10] == tuple(o.data_ptr() for o in out)
+        assert args_c[-3:] == (M, pad, 1234)
+        outs = out[:3]
+        assert out[3].shape == (3, 7, 16, 16)
+    else:
+        outs = (out,) if kernel == "gather_patches" else out
+        assert args_c[:4] == (lvl.img.data_ptr(), Hp, Wp, centers.data_ptr())
+        assert args_c[4:4 + len(outs)] == tuple(o.data_ptr() for o in outs)
+        assert args_c[-4:] == (M, psz, pad, 1234)
+    if kernel != "ncc3_scores":
+        for o in outs:
+            assert o.shape == (3, 7, psz, psz) and o.dtype == torch.float32
+    launched = {k: v for c in counts.values() for k, v in c.items() if v}
+    assert launched == {key: 1}
+    if kernel == "ncc3_scores":
+        return
     # the patch mean is the plain version's torch.mean, after the launch
     assert "aten::mean" in ops_of(True)[1]
-    assert patch_gather.launches[kernel] == 2
+    assert mod.launches[key] == 2

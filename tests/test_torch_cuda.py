@@ -9,8 +9,10 @@ package can shadow this directory there):
 
 Tolerances (kernel vs plain version, same inputs, both on the card):
 - K1: the kernel performs the plain version's float operations in the
-  same order (taps and gradient differences through the non-contracting
-  _rn intrinsics): bit-exact.
+  same order (support starts, weights, taps and gradient differences
+  through the non-contracting _rn intrinsics): bit-exact, also at
+  integer, near-integer, negative and NaN centres (NaN where the plain
+  version gives NaN).
 - K2: the 64-pixel sums of the mean and of (gx, gy) run in a warp
   butterfly: 1e-5 of sum |p_d * pdiff|.  K3: exact without the mean,
   4e-5 (about 1 ulp of intensities below 256) with it.
@@ -36,6 +38,8 @@ Tolerances (kernel vs plain version, same inputs, both on the card):
   sum|p_a p_b| / (n_a n_b), plus 8 MEAN_EPS (1/n_a + 1/n_b) for the
   other summation order of the patch mean (MEAN_EPS = 6.2e-5, 2 ulp of
   256), which decides the score of a flat patch; scores stay in [0, 1].
+  At the edge centres too; a centre that is not finite gives NaN in the
+  scores it enters, in both versions.
 - The tracker and the verifier, card vs CPU: other summation orders in
   H, rhs and (gx, gy), iterated; 1e-4 on the pose coefficients, 5e-3 on
   the correlations.
@@ -101,17 +105,27 @@ def _k1_inputs(pair, dev):
 
 
 @pytest.mark.parametrize("patch_norm", [False, True])
-def test_k1_kernel_matches_plain(pair, cuda_device, patch_norm):
+def test_k1_kernel_matches_plain(pair, cuda_device, patch_norm, monkeypatch):
     lvl, qimg, centers, origins = _k1_inputs(pair, cuda_device)
-    n0 = patch_gather.launches["gather_ref_grad_windows"]
-    got = patch_gather.gather_ref_grad_windows(lvl, qimg, centers, origins, PSZ, PAD,
-                                               WIN, patch_norm=patch_norm)
-    torch.cuda.synchronize()
-    assert patch_gather.launches["gather_ref_grad_windows"] == n0 + 1
+    # and the centres where the reference's rule bites, with the window
+    # origins of their neighbours (NaN patches at the non-finite ones)
+    edge = t32(_edge_centers(160.0, 120.0), cuda_device)
+    centers = torch.cat([centers, edge])
+    origins = torch.cat([origins, origins[:len(edge)]])
     want = patch_gather.gather_ref_grad_windows_plain(lvl, qimg, centers, origins, PSZ,
                                                       PAD, WIN, patch_norm=patch_norm)
+    assert bool(want[0].isnan().any())
+    n0 = patch_gather.launches["gather_ref_grad_windows"]
+    with monkeypatch.context() as mp:
+        # K1 takes the centres and origins: no index or weight is made in torch
+        for helper in ("bilinear_base", "clamp_to_fit"):
+            mp.setattr(patch_gather, helper, None)
+        got = patch_gather.gather_ref_grad_windows(lvl, qimg, centers, origins, PSZ, PAD,
+                                                   WIN, patch_norm=patch_norm)
+    torch.cuda.synchronize()
+    assert patch_gather.launches["gather_ref_grad_windows"] == n0 + 1
     for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, rtol=0, atol=0)
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
 
 
 def test_k1_rejects_what_it_does_not_take(pair, cuda_device):
@@ -217,7 +231,7 @@ def test_k5_k6_k7_kernels_match_plain(pair, cuda_device, psz, monkeypatch):
     with monkeypatch.context() as mp:
         # K5 and K6 take the centres: no index or weight is made in torch,
         # and a call without the patch mean is its launch alone
-        for helper in ("support_of", "bilinear_base", "clamp_to_fit"):
+        for helper in ("bilinear_base", "clamp_to_fit"):
             mp.setattr(patch_gather, helper, None)
         for pn in (False, True):
             n5 = patch_gather.launches["gather_patches"]
@@ -264,20 +278,29 @@ def test_k4_kernel_matches_plain(pair, cuda_device, psz):
     uvs = [t32(base + rng.uniform(-1.5, 1.5, base.shape) * (k != 1), cuda_device)
            for k in range(3)]
     uvs[2][:3] = t32([[6.5, 5.25], [4.0, 7.5], [7.75, 4.5]], cuda_device)   # flat fwd
+    # the centres where the reference's rule bites, in all three planes
+    edge = t32(_edge_centers(w, h), cuda_device)
+    uvs = [torch.cat([uv, edge]) for uv in uvs]
+    n_pts = len(base) + len(edge)
     n0 = ncc3.launches["ncc3_scores"]
     got = ncc3.ncc3_scores(*planes, *uvs, psz, pad)
     torch.cuda.synchronize()
     assert ncc3.launches["ncc3_scores"] == n0 + 1
     want = ncc3.ncc3_scores_plain(*planes, *uvs, psz, pad)
     pats = [patch_gather.gather_patches_plain(im, uv, psz, pad, patch_norm=True)
-            .reshape(len(base), -1) for im, uv in zip(planes, uvs)]
+            .reshape(n_pts, -1) for im, uv in zip(planes, uvs)]
     nrm = [torch.clamp(torch.linalg.vector_norm(p, dim=-1), min=1e-15) for p in pats]
+    finite = torch.isfinite(edge).all(-1)
     for (a, b), g, w_ in zip(((0, 1), (1, 2)), got, want):
+        # NaN exactly at the non-finite centres, in both versions
+        assert torch.equal(torch.isnan(g), torch.isnan(w_))
+        assert torch.equal(torch.isnan(g)[len(base):], ~finite)
+        ok = ~torch.isnan(w_)
         scale = (pats[a] * pats[b]).abs().sum(-1) / (nrm[a] * nrm[b])
         tol = 2e-5 * scale + 8 * 6.2e-5 * (1 / nrm[a] + 1 / nrm[b])
-        assert bool(torch.all((g - w_).abs() <= tol))
-        assert bool(torch.isfinite(g).all()) and 0.0 <= float(g.min())
-        assert float(g.max()) <= 1.0 + 1e-5
+        assert bool(torch.all((g - w_).abs()[ok] <= tol[ok]))
+        assert bool(torch.isfinite(g[ok]).all()) and 0.0 <= float(g[ok].min())
+        assert float(g[ok].max()) <= 1.0 + 1e-5
     assert bool((nrm[2][:3] < 1e-3).all())           # the flat patches are flat
     with pytest.raises(ValueError, match="is on"):
         ncc3.ncc3_scores(planes[0].cpu(), *planes[1:], *uvs, psz, pad)
@@ -411,6 +434,12 @@ def test_k9_kernel_equals_k1_and_plain(pair, cuda_device, patch_norm):
     centers = centers.repeat(reps, 1) + t32(
         np.random.default_rng(14).uniform(-1, 1, (len(centers) * reps, 2)), cuda_device)
     origins = ws.window_origin(centers + 1.5, PSZ, WIN, PAD)
+    # and the centres where the reference's rule bites (NaN patches at the
+    # non-finite ones), in the middle of the strips
+    edge = t32(_edge_centers(160.0, 120.0), cuda_device)
+    at = len(centers) // 2
+    centers = torch.cat([centers[:at], edge, centers[at:]])
+    origins = torch.cat([origins[:at], origins[:len(edge)], origins[at:]])
     n0 = patch_prefetch.launches["gather_ref_grad_windows_prefetch"]
     n1 = patch_gather.launches["gather_ref_grad_windows"]
     got = patch_prefetch.gather_ref_grad_windows_prefetch(
@@ -422,8 +451,10 @@ def test_k9_kernel_equals_k1_and_plain(pair, cuda_device, patch_norm):
                                               patch_norm=patch_norm)
     plain = patch_prefetch.gather_ref_grad_windows_prefetch_plain(
         lvl, qimg, centers, origins, PSZ, PAD, WIN, patch_norm=patch_norm)
+    assert bool(plain[0].isnan().any())
     for g, a, b in zip(got, k1, plain):
-        assert torch.equal(g, a) and torch.equal(g, b)
+        torch.testing.assert_close(g, a, rtol=0, atol=0, equal_nan=True)
+        torch.testing.assert_close(g, b, rtol=0, atol=0, equal_nan=True)
     with pytest.raises(NotImplementedError):
         patch_prefetch.gather_ref_grad_windows_prefetch(lvl, qimg, centers, origins, 6,
                                                         PAD, 14)
