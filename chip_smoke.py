@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``invcompcamtrack_torch/csrc``, holds
 each against its plain PyTorch version at the main paths' shapes, and
-drives five paths, each with the launch counts set to 0 just before it
+drives six paths, each with the launch counts set to 0 just before it
 and read just after:
 
 1. the batched IC-GN tracker ``track_pose_batch`` at the shape of
@@ -29,7 +29,14 @@ and read just after:
    benchmark's ``evaluate_pair`` on one 640x480 pair at patch side 32
    (K8 x 16, K5 x 4), and the tracker of path 1 with
    ``gather_prefetch=True`` (K9 x 5, K1 x 0, K2 x 50), whose poses must
-   equal path 1's bit for bit.
+   equal path 1's bit for bit;
+6. the visual-odometry engine, one stream, at ``bench.py::bench_engine``'s
+   workload (66 frames of 1280x720, 400 seeds, 512 landmarks, a
+   5-keyframe window): bootstrap from the true poses, frames 2-33 through
+   ``run_frames``, frames 34-65 timed (per frame K1 x 5, K2 x 50; per
+   keyframe K6 x 20, K7 x 20), the ATE against the true centres, the card
+   against the port's CPU run, and the GT-free bootstrap and
+   ``examples/run_kitti_vo_torch.py``'s synthetic fallback at small sizes.
 
 It checks that each path went through its kernels and solved its
 problem, compares the card with the port's CPU run, then times the paths
@@ -146,6 +153,29 @@ TIE_TOL = 1e-6
 # Correlations, card vs CPU: the chains' poses differ by up to POSE_TOL,
 # which moves a reprojection by up to ~0.1 px at fc ~ 1000.
 CORR_TOL = 5e-3
+# The VO engine (path 6) at bench.py::bench_engine's workload: 66 frames of
+# 1280x720, 400 seeds, 512 landmarks, a 5-keyframe window.
+ENGINE_FRAMES, ENGINE_CHUNK = 66, 32
+# bench_engine's tripwire on the ATE against the true centres (unaligned)
+ENGINE_ATE_LIMIT = 0.01
+# The engine, card vs the port's CPU run (bootstrap + frames 2-11 at full
+# width), per-frame pose gap (max abs coefficient).  The tracker and BA's
+# accept/reject are not continuous in their inputs, and the engine carries
+# each frame's state into the next, so the card is held to the CPU as the
+# CPU holds to itself: the median frame within ENGINE_MEDIAN_TOL, the worst
+# within ENGINE_WORST_TOL; beside the card's gaps the phase prints those of
+# two CPU runs whose seeds differ by ENGINE_SEED_SHIFT (1e-6, a float32 ulp
+# or two at depth 8: 1e-7 would leave most coordinates unmoved).  Measured
+# on an H100 (torch 2.11, CUDA 12.8): the card 2.7e-6 from the CPU at the
+# median frame and 1.7e-5 at the worst; the two CPU runs 4.9e-6 and 2.5e-5.
+# The median frame is held to 10 x the CPU's median spread.  The worst is
+# held to REPRO_TOL: a tracker call on a plane at one depth is float32-
+# sensitive in its normalised coordinates (JAX f32 and f64 part by 9.3e-5
+# at 320x240, tests/test_torch_icgn.py), and the engine carries a call's
+# gap into the frames after it.
+ENGINE_MEDIAN_TOL = 5e-5
+ENGINE_WORST_TOL = REPRO_TOL
+ENGINE_SEED_SHIFT = 1e-6
 
 
 def fail(msg: str) -> None:
@@ -305,6 +335,229 @@ def held_to_repro(name, gaps):
           f"{name}: card vs CPU poses differ by {float(gaps.max())} (median "
           f"{float(gaps.median())}), {apart} of {len(gaps)} lanes beyond {POSE_TOL}")
     return apart
+
+
+def engine_workload(torch):
+    """bench.py::bench_engine's scene, pose path and seeds (from its
+    generator, seeded with 1), with two more frames along the path (from a
+    generator of their own) for the single-step timings."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from invcompcamtrack_torch import synthetic
+    from invcompcamtrack_torch.core import lie
+
+    rng = np.random.default_rng(1)
+    scene = synthetic.make_scene(rng, wh=(1280, 720), fc=(1000.0, 1200.0), z0=8.0,
+                                 freq_range=(0.5, 6.0))
+    poses = [np.zeros(6)]
+    for i in range(1, ENGINE_FRAMES):
+        poses.append(poses[-1] + np.r_[0.02, 0.01 * np.sin(i * 0.3), 0.01,
+                                       rng.normal(size=3) * 0.001])
+    seeds = synthetic.sample_plane_points(scene, rng, 400, margin=24)
+    rng_x = np.random.default_rng(SEED + 6)
+    for i in range(ENGINE_FRAMES, ENGINE_FRAMES + 2):
+        poses.append(poses[-1] + np.r_[0.02, 0.01 * np.sin(i * 0.3), 0.01,
+                                       rng_x.normal(size=3) * 0.001])
+    poses = np.stack(poses)
+    Gs = [lie.se3_exp(torch.tensor(p, dtype=torch.float64)).numpy() for p in poses]
+    with ThreadPoolExecutor(8) as ex:
+        frames = np.stack(list(ex.map(
+            lambda G: synthetic.render(scene, G).astype(np.float32), Gs)))
+    centers = np.stack([-G[:, :3].T @ G[:, 3] for G in Gs])
+    return scene, poses, frames, seeds, centers
+
+
+def engine_phase(torch, dev, card, all_counts, read_counts, expect_counts):
+    """Path 6: the VO engine, one stream, at bench_engine's workload on the
+    card (bootstrap from the true poses, frames 2-33 through run_frames
+    untimed, frames 34-65 timed with the launch counts set to 0 just
+    before), then single-step timings and profiles, the card against the
+    port's CPU run, and the GT-free bootstrap at a small size."""
+    from invcompcamtrack_torch import ICGNParams, synthetic
+    from invcompcamtrack_torch.core import lie
+    from invcompcamtrack_torch.core.camera import CameraPyramid
+    from invcompcamtrack_torch.image.pyramid import build_pyramid
+    from invcompcamtrack_torch.vo import engine
+    from invcompcamtrack_torch.vo.metrics import ate_rmse
+
+    t_phase = time.perf_counter()
+    scene, poses, frames, seeds, centers = engine_workload(torch)
+    render_s = time.perf_counter() - t_phase
+    tracker = ICGNParams(lv_f=4, lv_l=0, psz=8, maxiter=10)
+    cfg = engine.VOConfig(tracker=tracker, max_landmarks=512, window=5, keyframe_stride=2,
+                          corners_per_kf=512, min_parallax_px=1.0)
+    cam = CameraPyramid.create(scene.fc, scene.cc, scene.wh, tracker.num_levels, tracker.psz)
+    vo = engine.VisualOdometry(cam, scene.fc, scene.cc, cfg)
+    check(vo.device.type == dev.type, "VisualOdometry did not default to the card")
+    vo.bootstrap(frames[0], frames[1], poses[0], poses[1], seeds)
+    n_boot = int(vo.lm_valid.sum())
+    chunks = [torch.from_numpy(frames[a:a + ENGINE_CHUNK]).to(dev)
+              for a in (2, 2 + ENGINE_CHUNK)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vo.run_frames(chunks[0])
+    warm_s = time.perf_counter() - t0
+    reset(*all_counts)
+    t0 = time.perf_counter()
+    vo.run_frames(chunks[1])          # returns the poses on the host: synced
+    chunk_s = time.perf_counter() - t0
+    launches = read_counts()
+    L, n_kf = tracker.num_levels, ENGINE_CHUNK // cfg.keyframe_stride
+    # per frame K1 once per level and K2 once per iteration of every level
+    # (the port's loop runs maxiter iterations, frozen or not); per
+    # keyframe two forward/backward LK passes (re-observation and corner
+    # tracks), each K6 and K7 once per level both ways
+    expect_counts(f"engine, run_frames over {ENGINE_CHUNK} frames ({n_kf} keyframes)",
+                  launches, {"K1": L * ENGINE_CHUNK,
+                             "K2": L * tracker.maxiter * ENGINE_CHUNK,
+                             "K6": 4 * L * n_kf, "K7": 4 * L * n_kf})
+    traj = np.stack(vo.trajectory)
+    check(traj.shape == (ENGINE_FRAMES, 3) and np.isfinite(traj).all(),
+          f"engine: trajectory {traj.shape}, finite {np.isfinite(traj).all()}")
+    ate = float(ate_rmse(torch.tensor(traj, dtype=torch.float64),
+                         torch.tensor(centers[:ENGINE_FRAMES]), with_scale=False))
+    n_live = int(vo.lm_valid.sum())
+    print(f"[{card}] engine: ATE {ate:.6f} (limit {ENGINE_ATE_LIMIT}) over {ENGINE_FRAMES} frames; "
+          f"live landmarks {n_live} (bootstrap {n_boot})")
+    check(np.isfinite(ate) and ate < ENGINE_ATE_LIMIT, f"engine: ATE {ate}")
+    check(n_live > n_boot, f"engine: {n_live} live landmarks, not more than the "
+          f"bootstrap's {n_boot}")
+
+    # one keyframe step and one track step from the state after frame 65
+    # (frame 66 a keyframe, frame 67 tracked against frame 64's keyframe).
+    # Each call starts from the same state: a keyframe step writes its
+    # pyramid into the ring slot it evicts, which no step of this state
+    # reads, so the calls repeat.
+    st0 = vo.state
+    img_kf = torch.from_numpy(frames[ENGINE_FRAMES]).to(dev)
+    img_tr = torch.from_numpy(frames[ENGINE_FRAMES + 1]).to(dev)
+
+    def kf_call():
+        return engine._keyframe_step(st0, img_kf, vo.cam, cfg)
+
+    def tr_call():
+        return engine._track_step(st0, img_tr, vo.cam, cfg)
+
+    kf_ms = cuda_ms(torch, kf_call, reps=5, warmup=1)
+    tr_ms = cuda_ms(torch, tr_call, reps=5, warmup=1)
+    kf_busy, kf_ops, kf_own = device_ms(torch, kf_call, reps=1,
+                                        what="the engine's keyframe step", top=10)
+    tr_busy, tr_ops, tr_own = device_ms(torch, tr_call, reps=1,
+                                        what="the engine's track step", top=5)
+    # the keyframe step stage by stage, from the same state and frame
+    pyr_kf = build_pyramid(img_kf, L, tracker.psz)
+    p_kf = engine._track_frame(st0, pyr_kf, vo.cam, tracker)
+    ro = engine._promote_reobserve(st0, pyr_kf, p_kf, vo.cam, cfg)
+    tri = engine._promote_triangulate(st0, pyr_kf, p_kf, vo.cam, cfg, ro)
+    stages = {
+        "track": lambda: engine._track_frame(st0, pyr_kf, vo.cam, tracker),
+        "re-observation (fb LK)": lambda: engine._promote_reobserve(
+            st0, pyr_kf, p_kf, vo.cam, cfg),
+        "corners, fb LK, triangulation": lambda: engine._promote_triangulate(
+            st0, pyr_kf, p_kf, vo.cam, cfg, ro),
+        "ring write, gates, window BA": lambda: engine._promote_commit(
+            st0, pyr_kf, p_kf, vo.cam, cfg, tri)}
+    stage_prof = {}
+    for k, f in stages.items():
+        busy, ops, _ = device_ms(torch, f, reps=1, what=f"the engine's keyframe stage {k}")
+        stage_prof[k] = {"wall_ms": cuda_ms(torch, f, reps=3, warmup=1), "device_busy_ms": busy,
+                         "device_ops": ops}
+    print(f"[{card}] engine keyframe step by stage: " + "; ".join(
+        f"{k} wall {v['wall_ms']:.1f} ms, device busy {v['device_busy_ms']:.2f} ms in "
+        f"{v['device_ops']:.0f} ops" for k, v in stage_prof.items()))
+    n_tr = ENGINE_CHUNK - n_kf
+    busy_share = (n_kf * kf_busy + n_tr * tr_busy) / (chunk_s * 1e3)
+    fps = ENGINE_CHUNK / chunk_s
+    print(f"[{card}] engine 1280x720, 512 landmarks, window 5: {fps:.2f} frames/s over "
+          f"frames 34-65 ({chunk_s * 1e3:.1f} ms for {ENGINE_CHUNK} frames; frames 2-33 "
+          f"took {warm_s * 1e3:.1f} ms); keyframe step wall {kf_ms:.2f} ms, device busy "
+          f"{kf_busy:.2f} ms in {kf_ops:.0f} device ops ({kf_busy / kf_ms:.1%}); track "
+          f"step wall {tr_ms:.2f} ms, device busy {tr_busy:.2f} ms in {tr_ops:.0f} device "
+          f"ops ({tr_busy / tr_ms:.1%}); device busy {busy_share:.1%} of the timed chunk "
+          f"(the steps' busy time over its wall)")
+    print(f"[{card}] engine: the port's kernels, device ms per keyframe step: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in sorted(kf_own.items()))
+          + "; per track step: " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(tr_own.items())))
+
+    # the card vs the port's CPU run, bootstrap + frames 2-11
+    n_cmp = 10
+
+    def engine_run(device, sd):
+        c = cam if device is None else cam.to(device)
+        v = engine.VisualOdometry(c, scene.fc, scene.cc, cfg, device=device)
+        v.bootstrap(frames[0], frames[1], poses[0], poses[1], sd)
+        return np.stack([v.process_frame(frames[i]) for i in range(2, 2 + n_cmp)])
+
+    p_card = engine_run(None, seeds)
+    t0 = time.perf_counter()
+    p_cpu = engine_run("cpu", seeds)
+    cpu_s = time.perf_counter() - t0
+    moved = seeds + np.random.default_rng(SEED + 7).normal(size=seeds.shape) * ENGINE_SEED_SHIFT
+    p_cpu2 = engine_run("cpu", moved)
+    gaps = np.abs(p_card - p_cpu).max(axis=1)
+    own = np.abs(p_cpu2 - p_cpu).max(axis=1)
+    print(f"[{card}] engine, card vs CPU, {n_cmp} frames: per-frame gaps "
+          + " ".join(f"{g:.2e}" for g in gaps)
+          + f" (median {np.median(gaps):.2e}, limit {ENGINE_MEDIAN_TOL}; worst limit "
+          f"{ENGINE_WORST_TOL}); CPU vs CPU with the seeds {ENGINE_SEED_SHIFT} apart: "
+          + " ".join(f"{g:.2e}" for g in own) + f" (median {np.median(own):.2e}); "
+          f"the CPU run took {cpu_s:.1f} s")
+    check(np.median(gaps) <= ENGINE_MEDIAN_TOL and gaps.max() <= ENGINE_WORST_TOL,
+          f"engine: card vs CPU per-frame gaps {gaps}")
+
+    # GT-free bootstrap on the card (tests/test_vo_engine.py::
+    # test_vo_engine_self_initialization's scene and motion), then the
+    # synthetic fallback of examples/run_kitti_vo_torch.py (320x240)
+    rng = np.random.default_rng(0)
+    scene_s = synthetic.make_scene(rng, wh=(256, 192), fc=(240.0, 245.0),
+                                   freq_range=(0.8, 8.0))
+    ps = [np.zeros(6)]
+    for _ in range(1, 8):
+        ps.append(ps[-1] + np.r_[0.02, 0.008, -0.03, rng.normal(size=3) * 0.001])
+    Gs = [lie.se3_exp(torch.tensor(p, dtype=torch.float64)).numpy() for p in ps]
+    imgs = [synthetic.render(scene_s, G) for G in Gs]
+    tr_s = ICGNParams(lv_f=2, lv_l=0, psz=8, maxiter=8)
+    cfg_s = engine.VOConfig(tracker=tr_s, max_landmarks=256, window=4, keyframe_stride=2,
+                            corners_per_kf=256, min_parallax_px=0.5)
+    cam_s = CameraPyramid.create(scene_s.fc, scene_s.cc, scene_s.wh, tr_s.num_levels,
+                                 tr_s.psz)
+    vo_s = engine.VisualOdometry(cam_s, scene_s.fc, scene_s.cc, cfg_s)
+    n_seeds = vo_s.bootstrap_from_images(imgs[0], imgs[1])
+    for img in imgs[2:]:
+        vo_s.process_frame(img)
+    c_s = np.stack([-G[:, :3].T @ G[:, 3] for G in Gs])
+    ate_s = float(ate_rmse(torch.tensor(np.stack(vo_s.trajectory), dtype=torch.float64),
+                           torch.tensor(c_s), with_scale=True))
+    extent_s = float(np.linalg.norm(c_s[-1] - c_s[0]))
+    print(f"[{card}] engine, GT-free bootstrap 256x192: {n_seeds} seeds (limit > 50), scale-aligned "
+          f"ATE {ate_s:.5f} (limit {0.05 * extent_s + 0.01:.5f})")
+    check(n_seeds > 50 and ate_s < 0.05 * extent_s + 0.01,
+          f"engine, GT-free bootstrap: {n_seeds} seeds, ATE {ate_s}")
+    spec = importlib.util.spec_from_file_location(
+        "run_kitti_vo_torch", Path(__file__).resolve().parent / "examples" / "run_kitti_vo_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    with contextlib.redirect_stdout(io_module.StringIO()) as out:
+        traj_x, ate_x = example.main(["--frames", "20"])
+    c_x = example.synthetic_sequence(20)[2]
+    limit_x = 0.05 * float(np.linalg.norm(c_x[-1] - c_x[0])) + 0.01
+    print(f"[{card}] examples/run_kitti_vo_torch.py (synthetic fallback, on the card): "
+          + " | ".join(out.getvalue().strip().splitlines()[1:]))
+    check(traj_x.shape == (20, 3) and np.isfinite(traj_x).all() and ate_x < limit_x,
+          f"examples/run_kitti_vo_torch.py: ATE {ate_x} (limit {limit_x})")
+
+    return launches, {
+        "card": card, "frames_per_s": fps, "ms_per_frame": chunk_s * 1e3 / ENGINE_CHUNK,
+        "keyframe_step_ms": kf_ms, "track_step_ms": tr_ms,
+        "keyframe_device_busy_ms": kf_busy, "keyframe_device_ops": kf_ops,
+        "track_device_busy_ms": tr_busy, "track_device_ops": tr_ops,
+        "device_busy_share": busy_share, "kernel_ms_per_keyframe": kf_own,
+        "kernel_ms_per_track_frame": tr_own, "keyframe_stages": stage_prof,
+        "launches": launches,
+        "ate": ate, "live_landmarks": n_live, "bootstrap_landmarks": n_boot,
+        "cpu_gaps": gaps.tolist(), "cpu_vs_moved_cpu_gaps": own.tolist(),
+        "self_init_seeds": n_seeds, "self_init_ate": ate_s, "example_ate": ate_x,
+        "render_s": render_s, "seconds": time.perf_counter() - t_phase}
 
 
 def main() -> None:
@@ -1275,6 +1528,14 @@ def main() -> None:
     }
     bounds["K9"] = bounds["K1"]
 
+    # ---- phase 6: main path 6, the VO engine (one stream) at
+    # bench_engine's workload; its counts are set to 0 just before its
+    # timed chunk and read just after.  It runs after the kernel timings:
+    # its profiles of tens of thousands of device events made the short
+    # profiles taken after them come back empty (seen on an H100)
+    eng_launches, eng_out = engine_phase(torch, dev, card, all_counts, read_counts,
+                                         expect_counts)
+
     print(f"[{card}] main path B={B} N={N} 1280x720: wall {main_ms:.3f} ms/call "
           f"(CUDA events, median of 10) = {B / main_ms * 1e3:.1f} pairs/s; device busy "
           f"{main_dev_ms:.3f} ms/call in {main_ops:.0f} device ops "
@@ -1324,7 +1585,8 @@ def main() -> None:
     def entry(name, source, replaces, launches_n, err_, key):
         b_ms, b_by = bounds[key]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches_n, "max_abs_err": err_, **times[key],
+                "launches": launches_n, "engine_launches": eng_launches[key[:2]],
+                "max_abs_err": err_, **times[key],
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms.get(key),
                 "shape": shapes[key]}
 
@@ -1385,6 +1647,7 @@ def main() -> None:
     print(json.dumps({"prefetch_tracker": {
         "launches": pre_launches, "ms_per_call_k1_k9_k9_k1": ab_ms,
         "kernel_ms_per_call": pre_own, "poses_equal_path_1": True}}))
+    print(json.dumps({"engine": eng_out}))
     print(json.dumps({"gathers_by_patch_side": size_times}))
     print(json.dumps({"kernels_off_main_path": off_path}))
     print(json.dumps({"kernels": kernels}))

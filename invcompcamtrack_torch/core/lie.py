@@ -108,3 +108,17 @@ def camera_center(G: torch.Tensor) -> torch.Tensor:
     R = G[..., :3]
     t = G[..., 3]
     return -matvec(R.transpose(-1, -2), t)
+
+
+def se3_inverse(G: torch.Tensor) -> torch.Tensor:
+    """[R|t] -> [R^T | -R^T t]."""
+    Rt = G[..., :3].transpose(-1, -2)
+    return torch.cat([Rt, -matvec(Rt, G[..., 3])[..., None]], dim=-1)
+
+
+def se3_compose(Ga: torch.Tensor, Gb: torch.Tensor) -> torch.Tensor:
+    """Group composition Ga . Gb: x -> Ra (Rb x + tb) + ta."""
+    Ra, ta = Ga[..., :3], Ga[..., 3]
+    R = matmat(Ra, Gb[..., :3])
+    t = matvec(Ra, Gb[..., 3]) + ta
+    return torch.cat([R, t[..., None]], dim=-1)

@@ -79,3 +79,19 @@ def in_frustum(uv: torch.Tensor, swo, sho) -> torch.Tensor:
     """Invalid iff x<0 | y<0 | x>swo | y>sho (border-inclusive)."""
     x, y = uv[..., 0], uv[..., 1]
     return (x >= 0) & (y >= 0) & (x <= swo) & (y <= sho)
+
+
+def projection_matrix(fc, cc, R: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
+    """P = K [-R | R tw], the reference python layer's (sign-flipped)
+    projection-matrix convention of the triangulation stack (reference:
+    func_util_geom.py:538-545); tw is the world camera center."""
+    fc = torch.as_tensor(fc, dtype=R.dtype, device=R.device)
+    cc = torch.as_tensor(cc, dtype=R.dtype, device=R.device)
+    K = torch.zeros(R.shape[:-2] + (3, 3), dtype=R.dtype, device=R.device)
+    K[..., 0, 0] = fc[..., 0]
+    K[..., 1, 1] = fc[..., 1]
+    K[..., 0, 2] = cc[..., 0]
+    K[..., 1, 2] = cc[..., 1]
+    K[..., 2, 2] = 1.0
+    P = torch.cat([-R, lie.matvec(R, tw)[..., None]], dim=-1)
+    return torch.matmul(K, P)

@@ -170,3 +170,46 @@ def test_bf16_storage_and_verbose_iterations(scene, capsys):
     assert float((low - ref).abs().max()) < 1e-3
     lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("Sc")]
     assert len(lines) >= int(aux.iters.sum()) - 2
+
+
+def test_track_pose_float32_sensitivity_on_a_plane():
+    """Not a fault of the port, logged in ROADMAP Queue 3: with ``donorm``
+    the tracker solves in normalised coordinates, and on a plane of points
+    at one depth (the engine's 320x240 scene, the keyframe of frame 1
+    tracked into frame 2, 200 points) its float32 result sits 9.3e-5 from
+    its float64 result in JAX and 1.2e-4 in the port on the CPU, on the
+    other side: the two float32 runs part by 2.1e-4 (the card's run of the
+    port sits within 4e-7 of JAX f32).  Without ``donorm`` they agree to
+    1.0e-6.  Held: the port within 2 x JAX f32's own gap of the float64
+    result."""
+    rng = np.random.default_rng(0)
+    from invcompcamtrack_torch.core.camera import CameraPyramid
+    from invcompcamtrack_torch.vo import synthetic as tsyn
+
+    sc = tsyn.make_scene(rng, wh=(320, 240), fc=(300.0, 302.0), freq_range=(0.8, 8.0))
+    poses = [np.zeros(6)]
+    for _ in range(1, 3):
+        poses.append(poses[-1] + np.r_[0.015, 0.006, -0.02, rng.normal(size=3) * 0.001])
+    imgs = [tsyn.render(sc, lie.se3_exp(torch.tensor(p, dtype=torch.float64)).numpy())
+            .astype(np.float32) for p in poses]
+    X = tsyn.sample_plane_points(sc, rng, 200, margin=24).astype(np.float32)
+    p1 = np.asarray(poses[1], np.float32)
+    out = {}
+    for donorm in (True, False):
+        kw = dict(lv_f=3, lv_l=0, psz=8, maxiter=8, donorm=donorm)
+        cam = CameraPyramid.create(sc.fc, sc.cc, sc.wh, 4, 8, device="cpu")
+        got = icgn.track_pose(build_pyramid(t32(imgs[1]), 4, 8), build_pyramid(t32(imgs[2]), 4, 8),
+                              t32(X), t32(p1), cam, ICGNParams(**kw)).numpy()
+        jres = {}
+        for dt in (jnp.float32, jnp.float64) if donorm else (jnp.float32,):
+            jcam = JCam.create(sc.fc, sc.cc, sc.wh, 4, 8)
+            jcam = JCam(*[jnp.asarray(f, dt) for f in jcam[:6]], jcam.padding)
+            jres[dt] = np.asarray(jicgn.track_pose(
+                jbuild(jnp.asarray(imgs[1], dt), 4, 8), jbuild(jnp.asarray(imgs[2], dt), 4, 8),
+                jnp.asarray(X, dt), jnp.asarray(p1, dt), jcam, ICGNParams(**kw)), np.float64)
+        out[donorm] = {k: np.abs(a - b).max() for k, (a, b) in (
+            ("port_jax32", (got, jres[jnp.float32])),
+            *((("port_jax64", (got, jres[jnp.float64])),
+               ("jax32_jax64", (jres[jnp.float32], jres[jnp.float64]))) if donorm else ()))}
+    assert out[True]["port_jax64"] <= 2 * out[True]["jax32_jax64"], out
+    assert out[False]["port_jax32"] <= POSE_ATOL, out
