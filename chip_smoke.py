@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``invcompcamtrack_torch/csrc``, holds
 each against its plain PyTorch version at the main paths' shapes, and
-drives six paths, each with the launch counts set to 0 just before it
+drives seven paths, each with the launch counts set to 0 just before it
 and read just after:
 
 1. the batched IC-GN tracker ``track_pose_batch`` at the shape of
@@ -36,7 +36,15 @@ and read just after:
    ``run_frames``, frames 34-65 timed (per frame K1 x 5, K2 x 50; per
    keyframe K6 x 20, K7 x 20), the ATE against the true centres, the card
    against the port's CPU run, and the GT-free bootstrap and
-   ``examples/run_kitti_vo_torch.py``'s synthetic fallback at small sizes.
+   ``examples/run_kitti_vo_torch.py``'s synthetic fallback at small sizes;
+7. the multi-stream engine ``VisualOdometryBatch`` at
+   ``bench.py::bench_engine_streams``' workload (4 streams of that clip's
+   scene, each on its own pose path, 400 seeds each): frames 34-65 of all
+   streams timed, with one stream's launches (per frame K1 x 5, K2 x 50,
+   per keyframe K6 x 20, K7 x 20: the kernels read the streams' planes as
+   one stack), each stream's ATE over the timed chunk, the device ops of a
+   step beside phase 6's one stream, and each stream against its own
+   engine alone on the card.
 
 It checks that each path went through its kernels and solved its
 problem, compares the card with the port's CPU run, then times the paths
@@ -44,7 +52,9 @@ and every kernel beside its plain version and its bound, K5 and K6 also
 at the other patch sides their callers use and K4 at psz 4 and 16.  The
 kernels that take the centres (K1, K4, K5, K6, K9) are also held at
 centres on, just below and just above integers and not finite, and each
-of their wrappers must be one device op.
+of their wrappers must be one device op.  K1, K5, K6, K7 and K9 are also
+held on a stack of 4 planes, against their plain versions and against 4
+calls on one plane each.
 
 It imports no JAX.  It exits non-zero, and prints no result, when no
 CUDA card is present, when the package is missing, or when any phase
@@ -176,6 +186,28 @@ ENGINE_ATE_LIMIT = 0.01
 ENGINE_MEDIAN_TOL = 5e-5
 ENGINE_WORST_TOL = REPRO_TOL
 ENGINE_SEED_SHIFT = 1e-6
+# Phase 3b's plane stack: K1, K5, K6, K7 and K9 read P_STACK planes in
+# one launch (the multi-stream engine's S streams).
+P_STACK = 4
+# The multi-stream VO engine (path 7) at bench.py::bench_engine_streams'
+# workload: ENGINE_STREAMS streams of bench_engine's scene and chunks, each
+# on its own pose path; bench_engine_streams' guard on every stream's ATE
+# over the timed chunk (unaligned, bench.py:224-233).  Each stream is held
+# to its own engine run alone on the card over its first STREAM_CMP_FRAMES
+# frames, as the card is held to the CPU (ENGINE_MEDIAN_TOL at the median
+# frame, ENGINE_WORST_TOL at the worst): on the card two operations of the
+# tracker sum a batch of streams in another order than one stream
+# (examples/stream_batch_gap_torch.py: the points' sum in
+# core/pose.py::normalize_points and the Hessian's bmm in
+# solver/icgn.py::_outer_sum), 4e-5 per step at most from equal states, and
+# the tracker's discontinuity carries that into the frames after it.
+# Measured on an H100: median frame 2.2e-6, worst 3.8e-4 (stream 1).  The
+# device ops of a step at ENGINE_STREAMS streams within OPS_SHARE of phase
+# 6's one stream.
+ENGINE_STREAMS = 4
+STREAM_ATE_LIMIT = 0.08
+STREAM_CMP_FRAMES = 8
+OPS_SHARE = 0.05
 
 
 def fail(msg: str) -> None:
@@ -428,9 +460,9 @@ def engine_phase(torch, dev, card, all_counts, read_counts, expect_counts):
     # Each call starts from the same state: a keyframe step writes its
     # pyramid into the ring slot it evicts, which no step of this state
     # reads, so the calls repeat.
-    st0 = vo.state
-    img_kf = torch.from_numpy(frames[ENGINE_FRAMES]).to(dev)
-    img_tr = torch.from_numpy(frames[ENGINE_FRAMES + 1]).to(dev)
+    st0 = vo.states
+    img_kf = torch.from_numpy(frames[ENGINE_FRAMES]).to(dev)[None]
+    img_tr = torch.from_numpy(frames[ENGINE_FRAMES + 1]).to(dev)[None]
 
     def kf_call():
         return engine._keyframe_step(st0, img_kf, vo.cam, cfg)
@@ -560,6 +592,171 @@ def engine_phase(torch, dev, card, all_counts, read_counts, expect_counts):
         "render_s": render_s, "seconds": time.perf_counter() - t_phase}
 
 
+def streams_workload(torch):
+    """bench.py::bench_engine_streams' workload: bench_engine's scene (its
+    generator seeded with 1) and ENGINE_STREAMS pose paths, stream s from
+    a generator seeded with 10 + s, which then draws the stream's 400
+    seeds; two more frames along each path (drawn after the seeds) for the
+    single-step timings.  -> scene, poses (S, 68, 6), frames (S, 68, H, W),
+    seeds (S, 400, 3), centres (S, 68, 3)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from invcompcamtrack_torch import synthetic
+    from invcompcamtrack_torch.core import lie
+
+    rng = np.random.default_rng(1)
+    scene = synthetic.make_scene(rng, wh=(1280, 720), fc=(1000.0, 1200.0), z0=8.0,
+                                 freq_range=(0.5, 6.0))
+    poses, seeds = [], []
+    for s in range(ENGINE_STREAMS):
+        rr = np.random.default_rng(10 + s)
+        path = [np.zeros(6)]
+        for i in range(1, ENGINE_FRAMES):
+            path.append(path[-1] + np.r_[0.02, 0.01 * np.sin(i * 0.3), 0.01,
+                                         rr.normal(size=3) * 0.001])
+        seeds.append(synthetic.sample_plane_points(scene, rr, 400, margin=24))
+        for i in range(ENGINE_FRAMES, ENGINE_FRAMES + 2):
+            path.append(path[-1] + np.r_[0.02, 0.01 * np.sin(i * 0.3), 0.01,
+                                         rr.normal(size=3) * 0.001])
+        poses.append(np.stack(path))
+    poses = np.stack(poses)
+    Gs = [lie.se3_exp(torch.tensor(p, dtype=torch.float64)).numpy() for p in poses.reshape(-1, 6)]
+    with ThreadPoolExecutor(8) as ex:
+        frames = np.stack(list(ex.map(
+            lambda G: synthetic.render(scene, G).astype(np.float32), Gs)))
+    centers = np.stack([-G[:, :3].T @ G[:, 3] for G in Gs])
+    S, F = poses.shape[:2]
+    return (scene, poses, frames.reshape((S, F) + frames.shape[1:]), np.stack(seeds),
+            centers.reshape(S, F, 3))
+
+
+def streams_phase(torch, dev, card, all_counts, read_counts, expect_counts, one_stream):
+    """Path 7: the multi-stream engine, VisualOdometryBatch over
+    ENGINE_STREAMS streams at bench_engine_streams' workload on the card
+    (each stream bootstrapped from its true poses, frames 2-33 untimed,
+    frames 34-65 timed with the launch counts set to 0 just before), each
+    stream's ATE over the timed chunk, single-step timings and profiles at
+    S streams beside phase 6's one stream (``one_stream``), and each
+    stream against its own engine run alone on the card."""
+    from invcompcamtrack_torch import ICGNParams
+    from invcompcamtrack_torch.core import lie
+    from invcompcamtrack_torch.core.camera import CameraPyramid
+    from invcompcamtrack_torch.vo import engine
+    from invcompcamtrack_torch.vo.metrics import ate_rmse
+
+    t_phase = time.perf_counter()
+    scene, poses, frames, seeds, centers = streams_workload(torch)
+    render_s = time.perf_counter() - t_phase
+    S = ENGINE_STREAMS
+    tracker = ICGNParams(lv_f=4, lv_l=0, psz=8, maxiter=10)
+    cfg = engine.VOConfig(tracker=tracker, max_landmarks=512, window=5, keyframe_stride=2,
+                          corners_per_kf=512, min_parallax_px=1.0)
+    cam = CameraPyramid.create(scene.fc, scene.cc, scene.wh, tracker.num_levels, tracker.psz)
+    engines = []
+    for s in range(S):
+        vo = engine.VisualOdometry(cam, scene.fc, scene.cc, cfg)
+        vo.bootstrap(frames[s, 0], frames[s, 1], poses[s, 0], poses[s, 1], seeds[s])
+        engines.append(vo)
+    batch = engine.VisualOdometryBatch(engines)
+    check(batch.states.landmarks.device.type == dev.type, "VisualOdometryBatch is not on the card")
+    chunks = [torch.from_numpy(frames[:, a:a + ENGINE_CHUNK]).to(dev)
+              for a in (2, 2 + ENGINE_CHUNK)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = batch.run_frames(chunks[0])
+    warm_s = time.perf_counter() - t0
+    reset(*all_counts)
+    t0 = time.perf_counter()
+    timed = batch.run_frames(chunks[1])   # returns the poses on the host: synced
+    chunk_s = time.perf_counter() - t0
+    launches = read_counts()
+    L, n_kf = tracker.num_levels, ENGINE_CHUNK // cfg.keyframe_stride
+    # the launches of one stream: the S streams' planes are one stack per call
+    expect_counts(f"engine, {S} streams, run_frames over {ENGINE_CHUNK} frames ({n_kf} "
+                  f"keyframes)", launches,
+                  {"K1": L * ENGINE_CHUNK, "K2": L * tracker.maxiter * ENGINE_CHUNK,
+                   "K6": 4 * L * n_kf, "K7": 4 * L * n_kf})
+    check(timed.shape == (S, ENGINE_CHUNK, 6) and np.isfinite(timed).all()
+          and np.isfinite(warm).all(), f"streams: poses {timed.shape}")
+    ates = []
+    for s in range(S):
+        c = lie.camera_center(lie.se3_exp(torch.tensor(timed[s], dtype=torch.float64)))
+        ates.append(float(ate_rmse(c,
+                                   torch.tensor(centers[s, 2 + ENGINE_CHUNK:2 + 2 * ENGINE_CHUNK]),
+                                   with_scale=False)))
+    n_live = [int(batch.state_of(s).lm_valid.sum()) for s in range(S)]
+    fps = S * ENGINE_CHUNK / chunk_s
+    print(f"[{card}] engine, {S} streams: ATE over the timed chunk per stream "
+          + " ".join(f"{a:.6f}" for a in ates) + f" (limit {STREAM_ATE_LIMIT}); live landmarks "
+          f"{n_live}")
+    check(all(np.isfinite(a) and a < STREAM_ATE_LIMIT for a in ates), f"streams: ATE {ates}")
+
+    # one keyframe step and one track step of all S streams from the state
+    # after frame 65 (frame 66 a keyframe, 67 tracked), repeatable as in
+    # phase 6
+    st0 = batch.states
+    img_kf = torch.from_numpy(np.ascontiguousarray(frames[:, ENGINE_FRAMES])).to(dev)
+    img_tr = torch.from_numpy(np.ascontiguousarray(frames[:, ENGINE_FRAMES + 1])).to(dev)
+
+    def kf_call():
+        return engine._keyframe_step(st0, img_kf, batch.cam, cfg)
+
+    def tr_call():
+        return engine._track_step(st0, img_tr, batch.cam, cfg)
+
+    kf_ms = cuda_ms(torch, kf_call, reps=3, warmup=1)
+    tr_ms = cuda_ms(torch, tr_call, reps=3, warmup=1)
+    kf_busy, kf_ops, kf_own = device_ms(torch, kf_call, reps=1,
+                                        what=f"the {S}-stream keyframe step", top=10)
+    tr_busy, tr_ops, tr_own = device_ms(torch, tr_call, reps=1,
+                                        what=f"the {S}-stream track step", top=5)
+    n_tr = ENGINE_CHUNK - n_kf
+    busy_share = (n_kf * kf_busy + n_tr * tr_busy) / (chunk_s * 1e3)
+    ops_1 = {"keyframe": one_stream["keyframe_device_ops"],
+             "track": one_stream["track_device_ops"]}
+    print(f"[{card}] engine, {S} streams x 1280x720, 512 landmarks, window 5: {fps:.2f} frames/s "
+          f"({S} x {ENGINE_CHUNK} frames in {chunk_s * 1e3:.1f} ms over frames 34-65; frames "
+          f"2-33 took {warm_s * 1e3:.1f} ms; one stream (phase 6): "
+          f"{one_stream['frames_per_s']:.2f} frames/s); keyframe step wall {kf_ms:.2f} ms, "
+          f"device busy {kf_busy:.2f} ms in {kf_ops:.0f} device ops (one stream "
+          f"{ops_1['keyframe']:.0f}); track step wall {tr_ms:.2f} ms, device busy "
+          f"{tr_busy:.2f} ms in {tr_ops:.0f} device ops (one stream {ops_1['track']:.0f}); "
+          f"device busy {busy_share:.1%} of the timed chunk")
+    print(f"[{card}] engine, {S} streams: the port's kernels, device ms per keyframe step: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in sorted(kf_own.items()))
+          + "; per track step: " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(tr_own.items())))
+    for what, ops in (("keyframe", kf_ops), ("track", tr_ops)):
+        check(abs(ops - ops_1[what]) <= OPS_SHARE * ops_1[what],
+              f"streams: a {what} step at {S} streams is {ops:.0f} device ops, one stream's "
+              f"{ops_1[what]:.0f}")
+
+    # each stream against its own engine alone on the card (the batch
+    # stacked copies of the engines' states, which are still at frame 2)
+    gaps = []
+    for s, vo in enumerate(engines):
+        alone = vo.run_frames(chunks[0][s, :STREAM_CMP_FRAMES])
+        gaps.append(np.abs(warm[s, :STREAM_CMP_FRAMES] - alone).max(axis=1))
+    gaps = np.stack(gaps)
+    print(f"[{card}] engine, {S} streams vs each stream alone on the card, first "
+          f"{STREAM_CMP_FRAMES} frames, per-frame pose gaps: "
+          + " | ".join(" ".join(f"{g:.1e}" for g in row) for row in gaps)
+          + f" (median {np.median(gaps):.2e}, limit {ENGINE_MEDIAN_TOL}; worst limit "
+          f"{ENGINE_WORST_TOL})")
+    check(np.median(gaps) <= ENGINE_MEDIAN_TOL and gaps.max() <= ENGINE_WORST_TOL,
+          f"streams vs alone: per-frame gaps {gaps}")
+    return launches, {
+        "card": card, "streams": S, "frames_per_s": fps,
+        "ms_per_frame": chunk_s * 1e3 / (S * ENGINE_CHUNK),
+        "keyframe_step_ms": kf_ms, "track_step_ms": tr_ms,
+        "keyframe_device_busy_ms": kf_busy, "keyframe_device_ops": kf_ops,
+        "track_device_busy_ms": tr_busy, "track_device_ops": tr_ops,
+        "one_stream_device_ops": ops_1, "device_busy_share": busy_share,
+        "kernel_ms_per_keyframe": kf_own, "kernel_ms_per_track_frame": tr_own,
+        "launches": launches, "ate_per_stream": ates, "live_landmarks": n_live,
+        "gaps_vs_alone": gaps.tolist(), "render_s": render_s,
+        "seconds": time.perf_counter() - t_phase}
+
+
 def main() -> None:
     import torch
 
@@ -576,7 +773,7 @@ def main() -> None:
     from invcompcamtrack_torch.core import lie
     from invcompcamtrack_torch.core.camera import CameraPyramid
     from invcompcamtrack_torch.device import default_device
-    from invcompcamtrack_torch.image.pyramid import build_pyramid
+    from invcompcamtrack_torch.image.pyramid import PyramidLevel, build_pyramid
     from invcompcamtrack_torch.match import dense_flow, features, flow_bench, lk, track
     from invcompcamtrack_torch.ops import (_build, icgn_iter, ncc3, patch_gather,
                                            patch_prefetch, warp)
@@ -824,6 +1021,81 @@ def main() -> None:
           f"psz 8, 4 (pad 4, 12x12 windows), 6 and 16 (K5, K6), K5 also at psz 18, 20 and "
           f"32, with and without the patch mean, max abs err {gather_err} (tol {GATHER_TOL}; NaN "
           f"exactly at the {n_nonfinite} points whose centre is not finite)")
+
+    # K1, K9, K5, K6 and K7 on a stack of P_STACK planes (the multi-stream
+    # engine's call: each stream's keyframe and frame, one launch for all),
+    # at the engine's shapes (psz 8, 16x16 windows), the M points in P_STACK
+    # groups with the edge centres among them: against the plain version,
+    # exactly as on one plane, and against P_STACK calls on one plane each,
+    # bit for bit
+    stack_in = torch.stack([convert.tensor_from_numpy(im) for im in
+                            (img_ref, img_new, img_2, np.ascontiguousarray(img_ref[:, ::-1]))])
+    check(len(stack_in) == P_STACK, "the plane stack")
+    lvl_st = build_pyramid(stack_in, 1, pad)[0]
+    q_st = lvl_st.img.flip(0).contiguous()      # each plane's query: another plane
+    uv_st = uv_e.reshape(P_STACK, -1, 2)
+    or_st = origins_e.reshape(P_STACK, -1, 2)
+
+    def plane(p):
+        return PyramidLevel(*(a[p] for a in lvl_st))
+
+    stack_calls = {
+        "K1": lambda pn, p=None: (
+            patch_gather.gather_ref_grad_windows(lvl_st, q_st, uv_st, or_st, psz, pad, win, pn)
+            if p is None else patch_gather.gather_ref_grad_windows(
+                plane(p), q_st[p], uv_st[p], or_st[p], psz, pad, win, pn)),
+        "K9": lambda pn, p=None: (
+            patch_prefetch.gather_ref_grad_windows_prefetch(lvl_st, q_st, uv_st, or_st, psz,
+                                                            pad, win, pn)
+            if p is None else patch_prefetch.gather_ref_grad_windows_prefetch(
+                plane(p), q_st[p], uv_st[p], or_st[p], psz, pad, win, pn)),
+        "K5": lambda pn, p=None: (patch_gather.gather_patches(lvl_st.img, uv_st, psz, pad, pn)
+                                  if p is None else patch_gather.gather_patches(
+                                      lvl_st.img[p], uv_st[p], psz, pad, pn)),
+        "K6": lambda pn, p=None: (
+            patch_gather.gather_patches_grad(lvl_st.img, lvl_st.dx, lvl_st.dy, uv_st, psz,
+                                             pad, pn)
+            if p is None else patch_gather.gather_patches_grad(
+                lvl_st.img[p], lvl_st.dx[p], lvl_st.dy[p], uv_st[p], psz, pad, pn)),
+        "K7": lambda pn, p=None: (patch_gather.gather_windows(lvl_st.img, or_st, win, win)
+                                  if p is None else patch_gather.gather_windows(
+                                      lvl_st.img[p], or_st[p], win, win)),
+    }
+    stack_plain = {
+        "K1": lambda pn: patch_gather.gather_ref_grad_windows_plain(
+            lvl_st, q_st, uv_st, or_st, psz, pad, win, pn),
+        "K5": lambda pn: patch_gather.gather_patches_plain(lvl_st.img, uv_st, psz, pad, pn),
+        "K6": lambda pn: patch_gather.gather_patches_grad_plain(
+            lvl_st.img, lvl_st.dx, lvl_st.dy, uv_st, psz, pad, pn),
+        "K7": lambda pn: patch_gather.gather_windows_plain(lvl_st.img, or_st, win, win),
+    }
+    stack_plain["K9"] = stack_plain["K1"]
+    stack_err = {}
+    for k, call in stack_calls.items():
+        stack_err[k] = 0.0
+        for pn in ((False,) if k == "K7" else (False, True)):
+            got, want = call(pn), stack_plain[k](pn)
+            got, want = ((got,), (want,)) if k in ("K5", "K7") else (got, want)
+            for part, (g, w) in enumerate(zip(got, want)):
+                err = (float((g - w).abs().max()) if k == "K7" or part == 3
+                       else exact_gap(g, w, f"{k} on {P_STACK} planes, part {part}"))
+                stack_err[k] = max(stack_err[k], err)
+                for p in range(P_STACK):
+                    one = call(pn, p)
+                    one = one[part] if isinstance(one, tuple) else one
+                    check(bool(torch.equal(torch.nan_to_num(g[p]), torch.nan_to_num(one)))
+                          and bool(torch.equal(torch.isnan(g[p]), torch.isnan(one))),
+                          f"{k} on {P_STACK} planes, plane {p}, part {part}, patch_norm={pn}: "
+                          f"differs from the call on that plane alone")
+    torch.cuda.synchronize()
+    for k, err in stack_err.items():
+        check(err == 0.0, f"{k} on {P_STACK} planes vs plain: max abs err {err} (expected "
+              f"bit-exact)")
+    print(f"K1, K9, K5, K6, K7 on a stack of {P_STACK} planes (level 0, {M // P_STACK} points "
+          f"per plane, the edge centres among them; psz 8, 16x16 windows), with and without "
+          f"the patch mean: vs plain {stack_err} (tol 0.0), and equal bit for bit to "
+          f"{P_STACK} calls on one plane each")
+    del lvl_st, q_st, stack_in
 
     # ---- phase 3c: K8 vs its plain version at 1280x720 and at the
     # coarsest level's 45x80: (a) a smooth flow, (b) a 10 px step across
@@ -1536,6 +1808,12 @@ def main() -> None:
     eng_launches, eng_out = engine_phase(torch, dev, card, all_counts, read_counts,
                                          expect_counts)
 
+    # ---- phase 7: main path 7, the multi-stream engine (VisualOdometryBatch)
+    # at bench_engine_streams' workload; its counts are set to 0 just before
+    # its timed chunk and read just after
+    str_launches, str_out = streams_phase(torch, dev, card, all_counts, read_counts,
+                                          expect_counts, eng_out)
+
     print(f"[{card}] main path B={B} N={N} 1280x720: wall {main_ms:.3f} ms/call "
           f"(CUDA events, median of 10) = {B / main_ms * 1e3:.1f} pairs/s; device busy "
           f"{main_dev_ms:.3f} ms/call in {main_ops:.0f} device ops "
@@ -1586,6 +1864,7 @@ def main() -> None:
         b_ms, b_by = bounds[key]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches_n, "engine_launches": eng_launches[key[:2]],
+                "engine_streams_launches": str_launches[key[:2]],
                 "max_abs_err": err_, **times[key],
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms.get(key),
                 "shape": shapes[key]}
@@ -1648,6 +1927,7 @@ def main() -> None:
         "launches": pre_launches, "ms_per_call_k1_k9_k9_k1": ab_ms,
         "kernel_ms_per_call": pre_own, "poses_equal_path_1": True}}))
     print(json.dumps({"engine": eng_out}))
+    print(json.dumps({"engine_streams": {**str_out, "plane_stack_vs_plain": stack_err}}))
     print(json.dumps({"gathers_by_patch_side": size_times}))
     print(json.dumps({"kernels_off_main_path": off_path}))
     print(json.dumps({"kernels": kernels}))

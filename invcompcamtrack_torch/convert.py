@@ -2,8 +2,8 @@
 the port, and back.
 
 The trackers have no weights: their state is the pyramids, the camera,
-the world points, the poses and, for the optical-flow point tracker, the
-track table.  These helpers take them as numpy arrays, or
+the world points, the poses, for the optical-flow point tracker the
+track table, and for the VO engine its ``VOState``.  These helpers take them as numpy arrays, or
 anything ``numpy.asarray`` accepts (a JAX array included, without this
 module importing JAX), and return the port's tensors on one device: the
 card, unless the caller passes ``device="cpu"``.  The tests feed both
@@ -21,6 +21,7 @@ from invcompcamtrack_torch.core.camera import CameraPyramid
 from invcompcamtrack_torch.device import resolve
 from invcompcamtrack_torch.image.pyramid import Pyramid, PyramidLevel, build_pyramid
 from invcompcamtrack_torch.match.track import TrackTable
+from invcompcamtrack_torch.vo.engine import VOState
 
 
 def tensor_from_numpy(a, device: torch.device | str | None = None,
@@ -93,3 +94,29 @@ def track_table_from_numpy(table, device: torch.device | str | None = None) -> T
 def track_table_to_numpy(table: TrackTable) -> dict:
     """The table's fields as numpy arrays, by name."""
     return {k: v.detach().cpu().numpy() for k, v in table._asdict().items()}
+
+
+def vo_state_from_numpy(state, device: torch.device | str | None = None):
+    """Any object with the fields of the JAX package's ``VOState`` (such
+    as that state, its leaves numpy or JAX arrays) -> the port's one-stream
+    ``vo/engine.py::VOState`` on one device, with its host mirror derived
+    (``kf_ptr`` and ``frame_idx`` as ints, ``kf_valid_host`` from
+    ``kf_valid``).  Assign it to ``VisualOdometry.state`` to run the port
+    from the JAX engine's state."""
+    device = resolve(device)
+
+    def t(name, dtype):
+        return tensor_from_numpy(np.asarray(getattr(state, name)), device, dtype)
+
+    f32, b, i32 = torch.float32, torch.bool, torch.int32
+    kf_valid = np.asarray(state.kf_valid, bool)
+    return VOState(
+        landmarks=t("landmarks", f32), lm_valid=t("lm_valid", b),
+        lm_fail=t("lm_fail", i32), kf_poses=t("kf_poses", f32), kf_valid=t("kf_valid", b),
+        kf_obs=t("kf_obs", f32), kf_obs_mask=t("kf_obs_mask", b), kf_rel=t("kf_rel", f32),
+        kf_rel_valid=t("kf_rel_valid", b), kf_rel_info=t("kf_rel_info", f32),
+        kf_pyr=pyramid_from_numpy([[np.asarray(a) for a in lvl] for lvl in state.kf_pyr],
+                                  device),
+        kf_ptr=int(np.asarray(state.kf_ptr)), cur_pose=t("cur_pose", f32),
+        frame_idx=int(np.asarray(state.frame_idx)),
+        kf_valid_host=tuple(bool(v) for v in kf_valid))

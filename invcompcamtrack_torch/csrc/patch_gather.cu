@@ -12,7 +12,12 @@
 // at an integer origin.
 //
 // Inputs:
-//   planes        padded level planes (Hp, Wp) f32
+//   planes        a contiguous stack of P padded level planes (P, Hp, Wp)
+//                 f32; the M points fall in P equal consecutive groups and
+//                 point m reads plane m / (M / P) (plane_of in
+//                 patch_gather.cuh).  P = 1 is one plane; P > 1 is what
+//                 jax.vmap makes of the TPU kernels: S streams, each
+//                 gathering from its own keyframe and frame, in one launch
 //   K1, K5, K6: centers (M, 2) f32 (x, y), unpadded: each point's support
 //                 start and weights are computed here, operation for
 //                 operation as image/taps.py computes them
@@ -76,12 +81,15 @@ gather_ref_grad_windows_kernel(const float* __restrict__ rimg,
                                float* __restrict__ p_img,
                                float* __restrict__ p_dx,
                                float* __restrict__ p_dy,
-                               float* __restrict__ qwin, int M, int pad) {
+                               float* __restrict__ qwin, int M, int per,
+                               int pad) {
   __shared__ float halo_all[kWarpsPerBlock][(kPsz + 3) * (kPsz + 3)];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int m = blockIdx.x * kWarpsPerBlock + warp;
   if (m >= M) return;  // warps are independent: no block barrier below
+  rimg = plane_of(rimg, m, per, Hp, Wp);
+  qimg = plane_of(qimg, m, per, Hp, Wp);
 
   const float2 c = centers[m];
   // (support row, support col, window row, window col)
@@ -109,12 +117,13 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 gather_patches_grad_kernel(const float* __restrict__ img, int Hp, int Wp,
                            const float2* __restrict__ centers,
                            float* __restrict__ p_img, float* __restrict__ p_dx,
-                           float* __restrict__ p_dy, int M, int pad) {
+                           float* __restrict__ p_dy, int M, int per, int pad) {
   constexpr int G = 32 / PSZ;
   const int lane = threadIdx.x & 31;
   const int g = lane / PSZ, j = lane - g * PSZ;
   const int m = (blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5)) * G + g;
   if (g >= G || m >= M) return;  // lanes are independent: no warp-wide op below
+  img = plane_of(img, m, per, Hp, Wp);
 
   const float2 c = centers[m];
   const int r0 = support_start(c.y, PSZ, pad, Hp);
@@ -173,12 +182,13 @@ template <int PSZ>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 gather_patches_kernel(const float* __restrict__ img, int Hp, int Wp,
                       const float2* __restrict__ centers,
-                      float* __restrict__ out, int M, int pad) {
+                      float* __restrict__ out, int M, int per, int pad) {
   constexpr int G = 32 / PSZ;
   const int lane = threadIdx.x & 31;
   const int g = lane / PSZ, j = lane - g * PSZ;
   const int m = (blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5)) * G + g;
   if (g >= G || m >= M) return;
+  img = plane_of(img, m, per, Hp, Wp);
 
   const float2 c = centers[m];
   const int r0 = support_start(c.y, PSZ, pad, Hp);
@@ -204,11 +214,13 @@ gather_patches_kernel(const float* __restrict__ img, int Hp, int Wp,
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 gather_patches_direct_kernel(const float* __restrict__ img, int Hp, int Wp,
                              const float2* __restrict__ centers,
-                             float* __restrict__ out, int M, int psz, int pad) {
+                             float* __restrict__ out, int M, int per, int psz,
+                             int pad) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int m = blockIdx.x * kWarpsPerBlock + warp;
   if (m >= M) return;
+  img = plane_of(img, m, per, Hp, Wp);
 
   const float2 c = centers[m];
   const int r0 = support_start(c.y, psz, pad, Hp);
@@ -225,80 +237,87 @@ gather_patches_direct_kernel(const float* __restrict__ img, int Hp, int Wp,
 
 // ------------------------------------------------------------------ K7
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-gather_windows_kernel(const float* __restrict__ img, int Wp,
+gather_windows_kernel(const float* __restrict__ img, int Hp, int Wp,
                       const int2* __restrict__ idx, float* __restrict__ out,
-                      int M, int wh, int ww) {
+                      int M, int per, int wh, int ww) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int m = blockIdx.x * kWarpsPerBlock + warp;
   if (m >= M) return;
   const int2 id = idx[m];
-  copy_window(img + (size_t)id.x * Wp + id.y, Wp, wh, ww,
+  copy_window(plane_of(img, m, per, Hp, Wp) + (size_t)id.x * Wp + id.y, Wp, wh, ww,
               out + (size_t)m * (wh * ww), lane);
 }
 
 }  // namespace icgn
 
 extern "C" int icgn_gather_ref_grad_windows(
-    const float* rimg, const float* qimg, int Hp, int Wp, const float* centers,
-    const int* origins, float* p_img, float* p_dx, float* p_dy, float* qwin,
-    int M, int pad, void* stream) {
-  if (Hp < icgn::kWin || Wp < icgn::kWin) return (int)cudaErrorInvalidValue;
+    const float* rimg, const float* qimg, int P, int Hp, int Wp,
+    const float* centers, const int* origins, float* p_img, float* p_dx,
+    float* p_dy, float* qwin, int M, int pad, void* stream) {
+  const int per = icgn::points_per_plane(M, P);
+  if (per < 0 || Hp < icgn::kWin || Wp < icgn::kWin)
+    return (int)cudaErrorInvalidValue;
   icgn::gather_ref_grad_windows_kernel<<<icgn::blocks_for(M),
                                          icgn::kWarpsPerBlock * 32, 0,
                                          (cudaStream_t)stream>>>(
       rimg, qimg, Hp, Wp, reinterpret_cast<const float2*>(centers),
-      reinterpret_cast<const int2*>(origins), p_img, p_dx, p_dy, qwin, M, pad);
+      reinterpret_cast<const int2*>(origins), p_img, p_dx, p_dy, qwin, M, per,
+      pad);
   return (int)cudaGetLastError();
 }
 
-extern "C" int icgn_gather_patches_grad(const float* img, int Hp, int Wp,
+extern "C" int icgn_gather_patches_grad(const float* img, int P, int Hp, int Wp,
                                         const float* centers, float* p_img,
                                         float* p_dx, float* p_dy, int M,
                                         int psz, int pad, void* stream) {
-  if (Hp < psz + 1 || Wp < psz + 1) return (int)cudaErrorInvalidValue;
+  const int per = icgn::points_per_plane(M, P);
+  if (per < 0 || Hp < psz + 1 || Wp < psz + 1) return (int)cudaErrorInvalidValue;
   const auto* c = reinterpret_cast<const float2*>(centers);
   // the even sides up to ops/patch_gather.py::MAX_PSZ (no caller goes beyond)
-  const bool ok = icgn::with_side<2, 4, 6, 8, 10, 12, 14, 16>(psz, [&](auto P) {
-    constexpr int kP = decltype(P)::value;
+  const bool ok = icgn::with_side<2, 4, 6, 8, 10, 12, 14, 16>(psz, [&](auto S) {
+    constexpr int kP = decltype(S)::value;
     icgn::gather_patches_grad_kernel<kP><<<icgn::group_blocks_for(M, kP),
                                            icgn::kWarpsPerBlock * 32, 0,
                                            (cudaStream_t)stream>>>(
-        img, Hp, Wp, c, p_img, p_dx, p_dy, M, pad);
+        img, Hp, Wp, c, p_img, p_dx, p_dy, M, per, pad);
   });
   if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
-extern "C" int icgn_gather_patches(const float* img, int Hp, int Wp,
+extern "C" int icgn_gather_patches(const float* img, int P, int Hp, int Wp,
                                    const float* centers, float* out, int M,
                                    int psz, int pad, void* stream) {
-  if (psz < 2 || psz % 2 || Hp < psz + 1 || Wp < psz + 1)
+  const int per = icgn::points_per_plane(M, P);
+  if (per < 0 || psz < 2 || psz % 2 || Hp < psz + 1 || Wp < psz + 1)
     return (int)cudaErrorInvalidValue;
   const auto* c = reinterpret_cast<const float2*>(centers);
   // the even sides up to 16, and those of the descriptors and the flow
   // benchmark
   const bool grouped = icgn::with_side<2, 4, 6, 8, 10, 12, 14, 16, 18, 32>(
-      psz, [&](auto P) {
-    constexpr int kP = decltype(P)::value;
+      psz, [&](auto S) {
+    constexpr int kP = decltype(S)::value;
     icgn::gather_patches_kernel<kP><<<icgn::group_blocks_for(M, kP),
                                       icgn::kWarpsPerBlock * 32, 0,
                                       (cudaStream_t)stream>>>(img, Hp, Wp, c,
-                                                              out, M, pad);
+                                                              out, M, per, pad);
   });
   if (!grouped)
     icgn::gather_patches_direct_kernel<<<icgn::blocks_for(M),
                                          icgn::kWarpsPerBlock * 32, 0,
                                          (cudaStream_t)stream>>>(
-        img, Hp, Wp, c, out, M, psz, pad);
+        img, Hp, Wp, c, out, M, per, psz, pad);
   return (int)cudaGetLastError();
 }
 
-extern "C" int icgn_gather_windows(const float* img, int Wp, const int* idx,
-                                   float* out, int M, int wh, int ww,
-                                   void* stream) {
+extern "C" int icgn_gather_windows(const float* img, int P, int Hp, int Wp,
+                                   const int* idx, float* out, int M, int wh,
+                                   int ww, void* stream) {
+  const int per = icgn::points_per_plane(M, P);
+  if (per < 0) return (int)cudaErrorInvalidValue;
   icgn::gather_windows_kernel<<<icgn::blocks_for(M), icgn::kWarpsPerBlock * 32,
                                 0, (cudaStream_t)stream>>>(
-      img, Wp, reinterpret_cast<const int2*>(idx), out, M, wh, ww);
+      img, Hp, Wp, reinterpret_cast<const int2*>(idx), out, M, per, wh, ww);
   return (int)cudaGetLastError();
 }

@@ -68,6 +68,22 @@ __device__ __forceinline__ void copy_window(const float* __restrict__ src,
   }
 }
 
+// The plane that point m reads in a contiguous (P, Hp, Wp) stack whose M
+// points fall in P equal consecutive groups of `per` = M / P: plane
+// m / per (P = 1: the one plane).  The counterpart of jax.vmap over the
+// TPU kernels, each stream gathering from its own planes.
+__device__ __forceinline__ const float* plane_of(const float* planes, int m,
+                                                 int per, int Hp, int Wp) {
+  return planes + (size_t)(m / per) * Hp * Wp;
+}
+
+// Points per plane of a stack of P planes, or -1 where M is not P equal
+// groups (the launchers then refuse the call).
+inline int points_per_plane(int M, int P) {
+  if (P < 1 || M % P != 0) return -1;
+  return M / P > 0 ? M / P : 1;
+}
+
 inline int blocks_for(int M) { return (M + kWarpsPerBlock - 1) / kWarpsPerBlock; }
 
 // blocks of kWarpsPerBlock warps for M points at 32/lanes points per warp

@@ -20,8 +20,9 @@
 // functions (patch_gather.cuh) on the same floats, so the outputs equal
 // K1's exactly.
 //
-// Inputs and outputs are K1's: centers (M, 2) f32 (x, y), unpadded, and
-// origins (M, 2) int32 window origins in the padded plane.  Each point's
+// Inputs and outputs are K1's: a (P, Hp, Wp) stack of each plane whose
+// point m reads plane m / (M / P), centers (M, 2) f32 (x, y), unpadded,
+// and origins (M, 2) int32 window origins in the padded plane.  Each point's
 // support start, weights and window origin come from K1's own device
 // functions (dual_index, bilinear_weights in patch_gather.cuh), with the
 // support and the window moved inside the plane (the dynamic_slice rule
@@ -60,8 +61,9 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
 }
 
-// Start the copies of one point's halo and window into one stage; the
-// halo's addresses are clamped into the plane exactly as load_halo's are.
+// Start the copies of one point's halo and window into one stage, from
+// the point's own planes (plane_of); the halo's addresses are clamped
+// into the plane exactly as load_halo's are.
 __device__ __forceinline__ void start_copies(const float* __restrict__ rimg,
                                             const float* __restrict__ qimg,
                                             int Hp, int Wp, int4 id, float* halo,
@@ -86,7 +88,7 @@ gather_prefetch_kernel(const float* __restrict__ rimg,
                        const float2* __restrict__ centers,
                        const int2* __restrict__ origins, float* __restrict__ p_img,
                        float* __restrict__ p_dx, float* __restrict__ p_dy,
-                       float* __restrict__ qwin, int M, int pad) {
+                       float* __restrict__ qwin, int M, int per, int pad) {
   __shared__ float halo_all[kWarpsPerBlock][kStages][kHalo];
   __shared__ float win_all[kWarpsPerBlock][kStages][kWinPix];
   const int warp = threadIdx.x >> 5;
@@ -97,7 +99,8 @@ gather_prefetch_kernel(const float* __restrict__ rimg,
 
   float2 c = centers[first];
   int4 id = dual_index(c, origins[first], Hp, Wp, pad);
-  start_copies(rimg, qimg, Hp, Wp, id, halo_all[warp][0], win_all[warp][0], lane);
+  start_copies(plane_of(rimg, first, per, Hp, Wp), plane_of(qimg, first, per, Hp, Wp),
+               Hp, Wp, id, halo_all[warp][0], win_all[warp][0], lane);
   cp_async_commit();
   int stage = 0;
   for (int m = first; m < M; m += stride) {
@@ -107,8 +110,9 @@ gather_prefetch_kernel(const float* __restrict__ rimg,
     if (next < M) {
       c_next = centers[next];
       id_next = dual_index(c_next, origins[next], Hp, Wp, pad);
-      start_copies(rimg, qimg, Hp, Wp, id_next, halo_all[warp][stage ^ 1],
-                  win_all[warp][stage ^ 1], lane);
+      start_copies(plane_of(rimg, next, per, Hp, Wp), plane_of(qimg, next, per, Hp, Wp),
+                   Hp, Wp, id_next, halo_all[warp][stage ^ 1],
+                   win_all[warp][stage ^ 1], lane);
     }
     cp_async_commit();   // (an empty group after the last point)
     cp_async_wait<1>();  // this point's group has landed; the next is in flight
@@ -129,12 +133,14 @@ gather_prefetch_kernel(const float* __restrict__ rimg,
 
 }  // namespace icgn
 
-extern "C" int icgn_gather_prefetch(const float* rimg, const float* qimg, int Hp,
-                                    int Wp, const float* centers,
+extern "C" int icgn_gather_prefetch(const float* rimg, const float* qimg, int P,
+                                    int Hp, int Wp, const float* centers,
                                     const int* origins, float* p_img,
                                     float* p_dx, float* p_dy, float* qwin,
                                     int M, int pad, void* stream) {
-  if (Hp < icgn::kWin || Wp < icgn::kWin) return (int)cudaErrorInvalidValue;
+  const int per = icgn::points_per_plane(M, P);
+  if (per < 0 || Hp < icgn::kWin || Wp < icgn::kWin)
+    return (int)cudaErrorInvalidValue;
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
@@ -144,6 +150,7 @@ extern "C" int icgn_gather_prefetch(const float* rimg, const float* qimg, int Hp
   icgn::gather_prefetch_kernel<<<blocks, icgn::kWarpsPerBlock * 32, 0,
                                  (cudaStream_t)stream>>>(
       rimg, qimg, Hp, Wp, reinterpret_cast<const float2*>(centers),
-      reinterpret_cast<const int2*>(origins), p_img, p_dx, p_dy, qwin, M, pad);
+      reinterpret_cast<const int2*>(origins), p_img, p_dx, p_dy, qwin, M, per,
+      pad);
   return (int)cudaGetLastError();
 }

@@ -18,8 +18,9 @@ from invcompcamtrack_torch.ops import patch_gather
 
 def extract_patches(img: torch.Tensor, centers: torch.Tensor, psz: int,
                     padding: int, patch_norm: bool = False) -> torch.Tensor:
-    """img (Hp, Wp) padded; centers (..., 2) -> (..., psz, psz).  K5 on
-    a CUDA tensor, its plain version on a CPU tensor."""
+    """img (Hp, Wp) padded, centers (..., 2); or a stack of S planes
+    (S, Hp, Wp), centers (S, ..., 2) -> (..., psz, psz).  K5 on a CUDA
+    tensor, its plain version on a CPU tensor."""
     return patch_gather.gather_patches(img, centers, psz, padding, patch_norm)
 
 
@@ -27,7 +28,8 @@ def extract_patches_grad(img: torch.Tensor, dx: torch.Tensor, dy: torch.Tensor,
                          centers: torch.Tensor, psz: int, padding: int,
                          patch_norm: bool = False):
     """One (I, dI/dx, dI/dy) gather sharing indices and weights ->
-    three (..., psz, psz) tensors; the mean applies to I only.  K6 on a
+    three (..., psz, psz) tensors; the mean applies to I only.  Planes
+    and centres as ``extract_patches`` takes them.  K6 on a
     CUDA tensor (it forms the gradients from ``img`` and reads neither
     ``dx`` nor ``dy``), its plain version on a CPU tensor."""
     return patch_gather.gather_patches_grad(img, dx, dy, centers, psz, padding,

@@ -16,7 +16,7 @@ import torch.nn.functional as F
 
 
 class PyramidLevel(NamedTuple):
-    img: torch.Tensor  # (H + 2p, W + 2p) padded image
+    img: torch.Tensor  # (H + 2p, W + 2p) padded image, or (S, ...) a stack
     dx: torch.Tensor   # same shape, zero-padded gradient
     dy: torch.Tensor
 
@@ -51,7 +51,9 @@ def pad_level(img: torch.Tensor, dx: torch.Tensor, dy: torch.Tensor,
 
 
 def build_pyramid(img: torch.Tensor, num_levels: int, padding: int) -> Pyramid:
-    """img: (H, W) float -> tuple of ``num_levels`` padded levels."""
+    """img: (H, W) float -> tuple of ``num_levels`` padded levels; a
+    stack of S images (S, H, W) gives levels with a leading S, each
+    image's as its own pyramid's."""
     levels = []
     cur = img
     for i in range(num_levels):

@@ -51,22 +51,26 @@ def clamp_to_fit(start: torch.Tensor, size: int, extent: int) -> torch.Tensor:
     return torch.clamp(start, 0, extent - size)
 
 
-def slice_windows(plane: torch.Tensor, row0: torch.Tensor, col0: torch.Tensor,
+def slice_windows(planes: torch.Tensor, row0: torch.Tensor, col0: torch.Tensor,
                   size) -> torch.Tensor:
-    """plane (..., Hp, Wp); starts (M,) -> (..., M, h, w) with ``size``
-    = h = w or (h, w), each start clamped to fit."""
-    Hp, Wp = plane.shape[-2:]
+    """planes (..., P, Hp, Wp), a stack of P planes; starts (P, m), row p
+    into plane p -> (..., P, m, h, w) with ``size`` = h = w or (h, w),
+    each start clamped to fit."""
+    P, Hp, Wp = planes.shape[-3:]
     h, w = (size, size) if isinstance(size, int) else size
-    rows = clamp_to_fit(row0, h, Hp).long()[:, None] + torch.arange(h, device=plane.device)
-    cols = clamp_to_fit(col0, w, Wp).long()[:, None] + torch.arange(w, device=plane.device)
-    return plane[..., rows[:, :, None], cols[:, None, :]]
+    dev = planes.device
+    rows = clamp_to_fit(row0, h, Hp).long()[..., None] + torch.arange(h, device=dev)
+    cols = clamp_to_fit(col0, w, Wp).long()[..., None] + torch.arange(w, device=dev)
+    plane = torch.arange(P, device=dev)[:, None, None, None]
+    return planes[..., plane, rows[..., :, None], cols[..., None, :]]
 
 
 def combine(window: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """window (..., M, psz+1, psz+1), w (M, 4) -> (..., M, psz, psz)."""
-    w = w[:, :, None, None]
-    return (w[:, 0] * window[..., 1:, 1:] + w[:, 1] * window[..., 1:, :-1]
-            + w[:, 2] * window[..., :-1, 1:] + w[:, 3] * window[..., :-1, :-1])
+    """window (..., M, psz+1, psz+1), w (M, 4) or any (..., M, 4) that
+    broadcasts against it -> (..., M, psz, psz)."""
+    w = w[..., None, None]
+    return (w[..., 0, :, :] * window[..., 1:, 1:] + w[..., 1, :, :] * window[..., 1:, :-1]
+            + w[..., 2, :, :] * window[..., :-1, 1:] + w[..., 3, :, :] * window[..., :-1, :-1])
 
 
 def patch_mean_removed(p: torch.Tensor) -> torch.Tensor:

@@ -19,18 +19,22 @@ from invcompcamtrack_torch.image.pyramid import central_gradients
 
 
 def _box_filter(x: torch.Tensor, radius: int) -> torch.Tensor:
+    """Mean over the (2r+1)^2 box of each image of x (..., H, W)."""
     k = 2 * radius + 1
     kernel = torch.ones((1, 1, k, k), dtype=x.dtype, device=x.device) / (k * k)
-    return F.conv2d(x[None, None], kernel, padding=radius)[0, 0]
+    return F.conv2d(x.reshape((-1, 1) + x.shape[-2:]), kernel,
+                    padding=radius).reshape(x.shape)
 
 
 def _maxpool_same(x: torch.Tensor, radius: int) -> torch.Tensor:
     # (max_pool2d pads with -inf)
-    return F.max_pool2d(x[None, None], 2 * radius + 1, stride=1, padding=radius)[0, 0]
+    return F.max_pool2d(x.reshape((-1, 1) + x.shape[-2:]), 2 * radius + 1, stride=1,
+                        padding=radius).reshape(x.shape)
 
 
 def shi_tomasi_response(img: torch.Tensor, window_radius: int = 1) -> torch.Tensor:
-    """Min-eigenvalue corner response map, same shape as img."""
+    """Min-eigenvalue corner response map, same shape as img (H, W) or a
+    stack of images (S, H, W)."""
     dx, dy = central_gradients(img)
     ixx = _box_filter(dx * dx, window_radius)
     ixy = _box_filter(dx * dy, window_radius)
@@ -46,9 +50,12 @@ def shi_tomasi_corners(img: torch.Tensor, max_corners: int = 1000,
     """Top-K corners with NMS.
 
     Returns (xy (K, 2) float, valid (K,)): fixed K with a validity mask
-    instead of a variable-length corner list.
+    instead of a variable-length corner list.  A stack of S images (S, H,
+    W) gives (S, K, 2) and (S, K), each image's corners as its own call's
+    (threshold, top-k and tiles per image, as ``jax.vmap`` makes them).
     """
-    H, W = img.shape
+    H, W = img.shape[-2:]
+    lead = img.shape[:-2]
     dev = img.device
     neg_inf = torch.full((), float("-inf"), dtype=img.dtype, device=dev)
     resp = shi_tomasi_response(img)
@@ -59,7 +66,7 @@ def shi_tomasi_corners(img: torch.Tensor, max_corners: int = 1000,
     resp = torch.where(inside, resp, neg_inf)
     # non-max suppression
     is_peak = resp >= _maxpool_same(resp, min_distance)
-    thresh = quality_level * torch.max(resp)
+    thresh = quality_level * torch.amax(resp, dim=(-2, -1), keepdim=True)
     score = torch.where(is_peak & (resp >= thresh), resp, neg_inf)
 
     # Selection.  For large images the score map is bucketed into a grid
@@ -73,10 +80,10 @@ def shi_tomasi_corners(img: torch.Tensor, max_corners: int = 1000,
         Hp = -(-H // tile) * tile
         Wp = -(-W // tile) * tile
         padded = F.pad(score, (0, Wp - W, 0, Hp - H), value=float("-inf"))
-        tiles = padded.reshape(Hp // tile, tile, Wp // tile, tile)
-        tiles = tiles.permute(0, 2, 1, 3).reshape(-1, tile * tile)
-        t_val, t_arg = torch.max(tiles, dim=1)
-        n_tiles = t_val.shape[0]
+        tiles = padded.reshape(lead + (Hp // tile, tile, Wp // tile, tile))
+        tiles = tiles.transpose(-3, -2).reshape(lead + (-1, tile * tile))
+        t_val, t_arg = torch.max(tiles, dim=-1)
+        n_tiles = t_val.shape[-1]
         t_id = torch.arange(n_tiles, device=dev)
         ty = torch.div(t_id, Wp // tile, rounding_mode="floor")
         tx = t_id % (Wp // tile)
@@ -85,13 +92,14 @@ def shi_tomasi_corners(img: torch.Tensor, max_corners: int = 1000,
         flat_idx = (ty * tile + py) * W + (tx * tile + px)
         k = min(max_corners, n_tiles)
         vals, sel = torch.topk(t_val, k)
-        idx = flat_idx[sel]
+        idx = torch.gather(flat_idx, -1, sel)
         if k < max_corners:
             pad = max_corners - k
-            vals = torch.cat([vals, neg_inf.expand(pad)])
-            idx = torch.cat([idx, torch.zeros(pad, dtype=idx.dtype, device=dev)])
+            vals = torch.cat([vals, neg_inf.expand(lead + (pad,))], dim=-1)
+            idx = torch.cat([idx, torch.zeros(lead + (pad,), dtype=idx.dtype, device=dev)],
+                            dim=-1)
     else:
-        vals, idx = torch.topk(score.reshape(-1), max_corners)
+        vals, idx = torch.topk(score.reshape(lead + (-1,)), max_corners)
     xy = torch.stack([(idx % W).to(img.dtype),
-                      torch.div(idx, W, rounding_mode="floor").to(img.dtype)], dim=1)
+                      torch.div(idx, W, rounding_mode="floor").to(img.dtype)], dim=-1)
     return xy, torch.isfinite(vals)

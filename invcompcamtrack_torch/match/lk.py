@@ -13,6 +13,9 @@ per level (coarse -> fine), per point:
     position += delta,
 with frustum-invalid points frozen.  All points run as one batch per
 level; ``lax.scan`` becomes a fixed loop of ``max_iters`` masked steps.
+Pyramids whose levels are stacks of S planes track S point sets ``(S, N,
+2)``, set s on pair s, in the same launches (what ``jax.vmap`` makes of
+the JAX functions; the multi-stream VO engine).
 """
 
 from __future__ import annotations
@@ -37,11 +40,12 @@ def track_points_lk(pyr_a: Pyramid, pyr_b: Pyramid, xy: torch.Tensor,
     """Track points from image A to image B.
 
     pyr_a/pyr_b: pyramids, built as the pose solver's are.
-    xy: (N, 2) positions in image A (level-0 unpadded coords).
+    xy: (N, 2) positions in image A (level-0 unpadded coords); (S, N, 2)
+    for pyramids of stacked planes.
     init_xy: optional initial guesses in image B (e.g. an expected
     disparity for stereo matching), which widens the convergence basin
     far beyond the pyramid's reach.
-    Returns (xy_b (N, 2), valid (N,)).
+    Returns (xy_b (..., N, 2), valid (..., N)).
     """
     if padding is None:
         padding = psz
@@ -52,23 +56,23 @@ def track_points_lk(pyr_a: Pyramid, pyr_b: Pyramid, xy: torch.Tensor,
     # guesses start at the coarsest level, in that level's coordinates
     start = xy if init_xy is None else init_xy
     guess = start / (2.0 ** (L - 1))
-    valid = torch.all(torch.isfinite(xy), dim=1)
+    valid = torch.all(torch.isfinite(xy), dim=-1)
 
     for s in range(L - 1, -1, -1):
         scale = 2.0 ** s
         xy_s = xy / scale
         lvl_a, lvl_b = pyr_a[s], pyr_b[s]
-        H_img = lvl_a.img.shape[0] - 2 * padding
-        W_img = lvl_a.img.shape[1] - 2 * padding
+        H_img = lvl_a.img.shape[-2] - 2 * padding
+        W_img = lvl_a.img.shape[-1] - 2 * padding
 
         ref, gx, gy = extract_patches_grad(lvl_a.img, lvl_a.dx, lvl_a.dy, xy_s,
                                            psz, padding)
-        N = ref.shape[0]
-        gxf = gx.reshape(N, -1)
-        gyf = gy.reshape(N, -1)
-        h00 = torch.sum(gxf * gxf, dim=1)
-        h01 = torch.sum(gxf * gyf, dim=1)
-        h11 = torch.sum(gyf * gyf, dim=1)
+        flat = ref.shape[:-2] + (-1,)
+        gxf = gx.reshape(flat)
+        gyf = gy.reshape(flat)
+        h00 = torch.sum(gxf * gxf, dim=-1)
+        h01 = torch.sum(gxf * gyf, dim=-1)
+        h11 = torch.sum(gyf * gyf, dim=-1)
         det = h00 * h11 - h01 * h01
         good = valid & (det > min_det) & _inb(xy_s, W_img, H_img)
         det_safe = torch.where(good, det, torch.ones_like(det))
@@ -76,7 +80,7 @@ def track_points_lk(pyr_a: Pyramid, pyr_b: Pyramid, xy: torch.Tensor,
         inv00 = torch.where(good, h11 / det_safe, zero)
         inv01 = torch.where(good, -h01 / det_safe, zero)
         inv11 = torch.where(good, h00 / det_safe, zero)
-        reff = ref.reshape(N, -1)
+        reff = ref.reshape(flat)
 
         if window_cache:
             # cache query windows at the level-entry guesses; iterations
@@ -92,14 +96,14 @@ def track_points_lk(pyr_a: Pyramid, pyr_b: Pyramid, xy: torch.Tensor,
                 q = sample_from_windows(qwin, origins, pos, psz, padding)
             else:
                 q = extract_patches(lvl_b.img, pos, psz, padding)
-            r = reff - q.reshape(N, -1)
-            bx = torch.sum(gxf * r, dim=1)
-            by = torch.sum(gyf * r, dim=1)
+            r = reff - q.reshape(flat)
+            bx = torch.sum(gxf * r, dim=-1)
+            by = torch.sum(gyf * r, dim=-1)
             dx = inv00 * bx + inv01 * by
             dy = inv01 * bx + inv11 * by
             act = good & (torch.abs(dx) + torch.abs(dy) > eps) & _inb(pos, W_img, H_img)
-            step = torch.stack([dx, dy], dim=1)
-            pos = pos + torch.where(act[:, None], step, torch.zeros_like(step))
+            step = torch.stack([dx, dy], dim=-1)
+            pos = pos + torch.where(act[..., None], step, torch.zeros_like(step))
         guess = pos
         valid = valid & _inb(guess, W_img, H_img)
         if s > 0:
@@ -109,7 +113,7 @@ def track_points_lk(pyr_a: Pyramid, pyr_b: Pyramid, xy: torch.Tensor,
 
 
 def _inb(p, W, H):
-    return (p[:, 0] >= 0) & (p[:, 1] >= 0) & (p[:, 0] <= W) & (p[:, 1] <= H)
+    return (p[..., 0] >= 0) & (p[..., 1] >= 0) & (p[..., 0] <= W) & (p[..., 1] <= H)
 
 
 def lk_forward_backward(pyr_a: Pyramid, pyr_b: Pyramid, xy: torch.Tensor,
@@ -125,7 +129,7 @@ def lk_forward_backward(pyr_a: Pyramid, pyr_b: Pyramid, xy: torch.Tensor,
     xy_b, ok_f = track_points_lk(pyr_a, pyr_b, xy, init_xy=init_xy, **kw)
     back_init = xy if init_xy is not None else None
     xy_back, ok_b = track_points_lk(pyr_b, pyr_a, xy_b, init_xy=back_init, **kw)
-    err = torch.sqrt(torch.sum((xy - xy_back) ** 2, dim=1))
-    disp = torch.sqrt(torch.sum((xy - xy_b) ** 2, dim=1))
+    err = torch.sqrt(torch.sum((xy - xy_back) ** 2, dim=-1))
+    disp = torch.sqrt(torch.sum((xy - xy_b) ** 2, dim=-1))
     gate = (err / torch.clamp(disp, min=1e-12) < ratio_th) & (err < abs_th)
     return xy_b, ok_f & ok_b & gate

@@ -38,21 +38,24 @@ COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# (P: the planes in a (P, Hp, Wp) stack, whose M points fall in P equal
+# consecutive groups, one per plane)
 _SIGNATURES = {
-    # rimg, qimg, Hp, Wp, centers, origins, p_img, p_dx, p_dy, qwin, M, pad,
-    # stream
-    "icgn_gather_ref_grad_windows": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P,
+    # rimg, qimg, P, Hp, Wp, centers, origins, p_img, p_dx, p_dy, qwin, M,
+    # pad, stream
+    "icgn_gather_ref_grad_windows": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                                      _I, _I, _P],
     # K9 takes K1's arguments
-    "icgn_gather_prefetch": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "icgn_gather_prefetch": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+                             _P],
     # img, flow, out, H, W, stream
     "icgn_warp_image": [_P, _P, _P, _I, _I, _P],
-    # img, Hp, Wp, centers, out, M, psz, pad, stream
-    "icgn_gather_patches": [_P, _I, _I, _P, _P, _I, _I, _I, _P],
-    # img, Hp, Wp, centers, p_img, p_dx, p_dy, M, psz, pad, stream
-    "icgn_gather_patches_grad": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
-    # img, Wp, idx, out, M, wh, ww, stream
-    "icgn_gather_windows": [_P, _I, _P, _P, _I, _I, _I, _P],
+    # img, P, Hp, Wp, centers, out, M, psz, pad, stream
+    "icgn_gather_patches": [_P, _I, _I, _I, _P, _P, _I, _I, _I, _P],
+    # img, P, Hp, Wp, centers, p_img, p_dx, p_dy, M, psz, pad, stream
+    "icgn_gather_patches_grad": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
+    # img, P, Hp, Wp, idx, out, M, wh, ww, stream
+    "icgn_gather_windows": [_P, _I, _I, _I, _P, _P, _I, _I, _I, _P],
     # img_b, img_r, img_f, Hp, Wp, uv_b, uv_r, uv_f, out, M, psz, pad, stream
     "icgn_ncc3_scores": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
     # qwin, ref, pdx, pdy, row_w, col_w, wts, valid, out, M, norm, bf16, stream

@@ -24,6 +24,13 @@ rule of the JAX package's XLA twins, which the TPU kernels do not follow
 at the frustum border).  The patch mean, when asked for, is removed by
 the wrapper with the plain version's own ``torch.mean``, as the JAX
 package removes it outside its kernels.
+
+Every gather reads one plane ``(Hp, Wp)`` for all its points, or a stack
+of P planes ``(P, Hp, Wp)`` with points ``(P, ..., 2)``: point group p
+reads plane p.  The stack is the counterpart of ``jax.vmap`` over the JAX
+functions (the multi-stream VO engine gathers from each stream's own
+keyframe and frame in one launch); the kernels take P and the plain
+versions index the stack.
 """
 
 from __future__ import annotations
@@ -52,12 +59,33 @@ MAX_PSZ = 16
 # ---------------------------------------------------------------- plain
 
 
+def stack_shape(name: str, img: torch.Tensor, pts: torch.Tensor):
+    """(P, Hp, Wp) of a plane (P = 1, any points ``(..., 2)``) or of a
+    stack of P planes, whose points must be ``(P, ..., 2)``."""
+    if img.dim() == 2:
+        return (1,) + tuple(img.shape)
+    require(name, img.dim() == 3,
+            f"planes must be (Hp, Wp) or (P, Hp, Wp), got {tuple(img.shape)}")
+    require(name, pts.dim() >= 2 and pts.shape[0] == img.shape[0],
+            f"a stack of {img.shape[0]} planes takes points (P, ..., 2), "
+            f"got {tuple(pts.shape)}")
+    return tuple(img.shape)
+
+
+def _by_plane(name: str, img: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Points (P, m, 2), group p for plane p."""
+    P = stack_shape(name, img, pts)[0]
+    return pts.reshape(P, -1, pts.shape[-1])
+
+
 def gather_patches_plain(img: torch.Tensor, centers: torch.Tensor, psz: int,
                          padding: int, patch_norm: bool = False) -> torch.Tensor:
-    """img (Hp, Wp) padded; centers (..., 2) -> (..., psz, psz)."""
+    """img (Hp, Wp) padded with centers (..., 2), or a stack (P, Hp, Wp)
+    with centers (P, ..., 2) -> (..., psz, psz)."""
     lead = centers.shape[:-1]
-    row0, col0, w = bilinear_base(centers.reshape(-1, 2), psz, padding)
-    patches = combine(slice_windows(img, row0, col0, psz + 1), w)
+    planes = img if img.dim() == 3 else img[None]
+    row0, col0, w = bilinear_base(_by_plane("gather_patches", img, centers), psz, padding)
+    patches = combine(slice_windows(planes, row0, col0, psz + 1), w)
     patches = patches.reshape(lead + (psz, psz))
     return patch_mean_removed(patches) if patch_norm else patches
 
@@ -66,10 +94,14 @@ def gather_patches_grad_plain(img: torch.Tensor, dx: torch.Tensor, dy: torch.Ten
                               centers: torch.Tensor, psz: int, padding: int,
                               patch_norm: bool = False):
     """One (I, dI/dx, dI/dy) gather sharing indices and weights ->
-    three (..., psz, psz) tensors; the mean applies to I only."""
+    three (..., psz, psz) tensors; the mean applies to I only.  Planes
+    and centres as ``gather_patches_plain`` takes them."""
     lead = centers.shape[:-1]
-    row0, col0, w = bilinear_base(centers.reshape(-1, 2), psz, padding)
+    row0, col0, w = bilinear_base(_by_plane("gather_patches_grad", img, centers),
+                                  psz, padding)
     planes = torch.stack([img, dx, dy])
+    if img.dim() == 2:
+        planes = planes[:, None]
     patches = combine(slice_windows(planes, row0, col0, psz + 1), w)
     p_img, p_dx, p_dy = (patches[k].reshape(lead + (psz, psz)) for k in range(3))
     if patch_norm:
@@ -79,10 +111,12 @@ def gather_patches_grad_plain(img: torch.Tensor, dx: torch.Tensor, dy: torch.Ten
 
 def gather_windows_plain(img: torch.Tensor, origins: torch.Tensor, wh: int,
                          ww: int) -> torch.Tensor:
-    """Integer-origin (wh, ww) windows of the padded image; origins
-    (..., 2) int32, each moved back inside the image if it would leave it."""
-    flat = origins.reshape(-1, 2)
-    out = slice_windows(img, flat[:, 0], flat[:, 1], (wh, ww))
+    """Integer-origin (wh, ww) windows of the padded plane (Hp, Wp), or of
+    a stack (P, Hp, Wp) with origins (P, ..., 2); origins int32 (row,
+    col), each window moved back inside its plane if it would leave it."""
+    o = _by_plane("gather_windows", img, origins)
+    planes = img if img.dim() == 3 else img[None]
+    out = slice_windows(planes, o[..., 0], o[..., 1], (wh, ww))
     return out.reshape(origins.shape[:-1] + (wh, ww))
 
 
@@ -92,7 +126,8 @@ def gather_ref_grad_windows_plain(ref: PyramidLevel, query_img: torch.Tensor,
                                   patch_norm: bool = False):
     """gather_patches_grad_plain on the reference level +
     gather_windows_plain on the query image -> p_img, p_dx, p_dy
-    (..., psz, psz) and qwin (..., win, win)."""
+    (..., psz, psz) and qwin (..., win, win).  Planes of one shape, each
+    a plane or a stack of P with centres and origins (P, ..., 2)."""
     p_img, p_dx, p_dy = gather_patches_grad_plain(ref.img, ref.dx, ref.dy, centers,
                                                   psz, padding, patch_norm)
     return p_img, p_dx, p_dy, gather_windows_plain(query_img, origins, win, win)
@@ -117,8 +152,8 @@ def require(name: str, cond: bool, msg: str) -> None:
 
 def _check_plane(name: str, img: torch.Tensor, arg: str = "img") -> None:
     require(name, img.dtype == torch.float32, f"{arg} must be float32, got {img.dtype}")
-    require(name, img.dim() == 2 and img.is_contiguous(),
-            f"{arg} must be a contiguous 2-D plane")
+    require(name, img.dim() in (2, 3) and img.is_contiguous(),
+            f"{arg} must be a contiguous plane (Hp, Wp) or stack (P, Hp, Wp)")
 
 
 def _check_centers(name: str, img: torch.Tensor, centers: torch.Tensor) -> None:
@@ -135,7 +170,7 @@ def _check_origins(name: str, img: torch.Tensor, origins: torch.Tensor) -> None:
     require(name, origins.shape[-1] == 2, "origins must be (..., 2)")
 
 
-def _check_psz(name: str, img: torch.Tensor, psz: int,
+def _check_psz(name: str, Hp: int, Wp: int, psz: int,
                max_psz: int | None = None) -> None:
     """K5 takes any even psz; K6 up to ``max_psz`` (no caller goes beyond)."""
     if psz % 2 != 0 or psz < 2:
@@ -144,20 +179,22 @@ def _check_psz(name: str, img: torch.Tensor, psz: int,
         raise NotImplementedError(
             f"{name}: the kernel takes an even psz up to {max_psz}, got {psz}: no "
             f"caller goes beyond, and gather_patches takes any even psz")
-    require(name, min(img.shape) >= psz + 1,
-            f"plane {tuple(img.shape)} is smaller than the patch support")
+    require(name, min(Hp, Wp) >= psz + 1,
+            f"plane {(Hp, Wp)} is smaller than the patch support")
 
 
 def gather_patches(img: torch.Tensor, centers: torch.Tensor, psz: int,
                    padding: int, patch_norm: bool = False) -> torch.Tensor:
-    """K5.  img (Hp, Wp) f32 padded; centers (..., 2) f32 unpadded coords
-    -> (..., psz, psz)."""
+    """K5.  img (Hp, Wp) f32 padded with centers (..., 2) f32 unpadded
+    coords, or a stack (P, Hp, Wp) with centers (P, ..., 2) ->
+    (..., psz, psz)."""
     name = "gather_patches"
     if not on_card(name, img):
         return gather_patches_plain(img, centers, psz, padding, patch_norm)
     _check_plane(name, img)
     _check_centers(name, img, centers)
-    _check_psz(name, img, psz)
+    P, Hp, Wp = stack_shape(name, img, centers)
+    _check_psz(name, Hp, Wp, psz)
     lead = centers.shape[:-1]
     flat = centers.reshape(-1, 2).contiguous()
     M = flat.shape[0]
@@ -165,8 +202,8 @@ def gather_patches(img: torch.Tensor, centers: torch.Tensor, psz: int,
     if M > 0:
         lib = _build.load()
         code = lib.icgn_gather_patches(
-            img.data_ptr(), img.shape[0], img.shape[1], flat.data_ptr(),
-            out.data_ptr(), M, psz, padding, _build.stream_ptr(img.device))
+            img.data_ptr(), P, Hp, Wp, flat.data_ptr(), out.data_ptr(), M, psz,
+            padding, _build.stream_ptr(img.device))
         _build.check(lib, code, name)
         launches[name] += 1
     out = out.reshape(lead + (psz, psz))
@@ -187,7 +224,8 @@ def gather_patches_grad(img: torch.Tensor, dx: torch.Tensor, dy: torch.Tensor,
                                          patch_norm)
     _check_plane(name, img)
     _check_centers(name, img, centers)
-    _check_psz(name, img, psz, MAX_PSZ)
+    P, Hp, Wp = stack_shape(name, img, centers)
+    _check_psz(name, Hp, Wp, psz, MAX_PSZ)
     lead = centers.shape[:-1]
     flat = centers.reshape(-1, 2).contiguous()
     M = flat.shape[0]
@@ -197,8 +235,8 @@ def gather_patches_grad(img: torch.Tensor, dx: torch.Tensor, dy: torch.Tensor,
     if M > 0:
         lib = _build.load()
         code = lib.icgn_gather_patches_grad(
-            img.data_ptr(), img.shape[0], img.shape[1], flat.data_ptr(),
-            p_img.data_ptr(), p_dx.data_ptr(), p_dy.data_ptr(), M, psz, padding,
+            img.data_ptr(), P, Hp, Wp, flat.data_ptr(), p_img.data_ptr(),
+            p_dx.data_ptr(), p_dy.data_ptr(), M, psz, padding,
             _build.stream_ptr(img.device))
         _build.check(lib, code, name)
         launches[name] += 1
@@ -211,16 +249,17 @@ def gather_patches_grad(img: torch.Tensor, dx: torch.Tensor, dy: torch.Tensor,
 
 def gather_windows(img: torch.Tensor, origins: torch.Tensor, wh: int,
                    ww: int) -> torch.Tensor:
-    """K7.  img (Hp, Wp) f32 padded; origins (..., 2) int32 (row, col)
-    -> (..., wh, ww) copies."""
+    """K7.  img (Hp, Wp) f32 padded with origins (..., 2) int32 (row,
+    col), or a stack (P, Hp, Wp) with origins (P, ..., 2) -> (..., wh,
+    ww) copies."""
     name = "gather_windows"
     if not on_card(name, img):
         return gather_windows_plain(img, origins, wh, ww)
     _check_plane(name, img)
     _check_origins(name, img, origins)
-    Hp, Wp = img.shape
+    P, Hp, Wp = stack_shape(name, img, origins)
     require(name, 1 <= wh <= Hp and 1 <= ww <= Wp,
-            f"plane {tuple(img.shape)} is smaller than the {wh}x{ww} window")
+            f"plane {(Hp, Wp)} is smaller than the {wh}x{ww} window")
     flat = origins.reshape(-1, 2)
     idx = torch.stack([clamp_to_fit(flat[:, 0], wh, Hp),
                        clamp_to_fit(flat[:, 1], ww, Wp)], dim=1).contiguous()
@@ -229,7 +268,7 @@ def gather_windows(img: torch.Tensor, origins: torch.Tensor, wh: int,
     if M > 0:
         lib = _build.load()
         code = lib.icgn_gather_windows(
-            img.data_ptr(), Wp, idx.data_ptr(), out.data_ptr(), M, wh, ww,
+            img.data_ptr(), P, Hp, Wp, idx.data_ptr(), out.data_ptr(), M, wh, ww,
             _build.stream_ptr(img.device))
         _build.check(lib, code, name)
         launches[name] += 1
@@ -259,8 +298,8 @@ def dual_gather(name: str, entry: str, counts: dict, ref: PyramidLevel,
     _check_origins(name, img, origins)
     require(name, origins.shape == centers.shape,
             "centers and origins must both be (..., 2)")
-    Hp, Wp = img.shape
-    require(name, Hp >= win and Wp >= win, f"plane {tuple(img.shape)} is smaller "
+    P, Hp, Wp = stack_shape(name, img, centers)
+    require(name, Hp >= win and Wp >= win, f"plane {(Hp, Wp)} is smaller "
             f"than the {win}x{win} window")
 
     lead = centers.shape[:-1]
@@ -274,7 +313,7 @@ def dual_gather(name: str, entry: str, counts: dict, ref: PyramidLevel,
     if M > 0:
         lib = _build.load()
         code = getattr(lib, entry)(
-            img.data_ptr(), query_img.data_ptr(), Hp, Wp, flat_c.data_ptr(),
+            img.data_ptr(), query_img.data_ptr(), P, Hp, Wp, flat_c.data_ptr(),
             flat_o.data_ptr(), p_img.data_ptr(), p_dx.data_ptr(), p_dy.data_ptr(),
             qwin.data_ptr(), M, padding, _build.stream_ptr(img.device))
         _build.check(lib, code, name)
@@ -296,7 +335,8 @@ def gather_ref_grad_windows(ref: PyramidLevel, query_img: torch.Tensor,
     ref: padded reference level (the kernel reads ``ref.img`` only and
     forms the gradient patches from it); query_img: padded query plane
     of the same shape; centers (..., 2) f32 unpadded coords; origins
-    (..., 2) int32 window origins in the padded plane.
+    (..., 2) int32 window origins in the padded plane.  Or stacks of P
+    planes each, with centers and origins (P, ..., 2).
     """
     name = "gather_ref_grad_windows"
     if not on_card(name, ref.img):

@@ -20,6 +20,10 @@ Each ``lax.scan`` of the JAX module is a fixed Python loop of
 ``num_iters`` steps with the same freeze masks, and every accept/reject
 is a ``torch.where``: nothing reads a value back to the host.  An
 optional per-view boolean ``mask`` supports variable-length tracks.
+Every function batches over leading axes (the streams of the
+multi-stream VO engine: ``P (S, C, V, 3, 4)``, ``pt2d (S, C, V, 2)``,
+and for ``triangulate_dlt`` ``R0 (S, 1, 3, 3)``, ``c0 (S, 1, 3)``), each
+point solved as alone.
 """
 
 from __future__ import annotations

@@ -24,6 +24,12 @@ leaves them to XLA.
 lanes freeze (the update is masked by ``active``), so the loop needs no
 host synchronisation; ``iters`` counts, on the device, the iterations
 entered while any lane was active, which is what the JAX loop runs.
+
+Pyramids whose levels are stacks of S planes ``(S, Hp, Wp)`` give S
+independent problems, problem s on pair s with ``X (S, ..., N, 3)``: the
+counterpart of ``jax.vmap`` over the JAX tracker, in one set of launches
+(the multi-stream VO engine).  Everything but the gathers is per lane
+already; the gathers read the stacks, and ``iters`` counts per problem.
 """
 
 from __future__ import annotations
@@ -55,7 +61,8 @@ _NORMDP_INIT = 1e-10
 class ICGNAux(NamedTuple):
     """Per-scale diagnostics (coarse -> fine order)."""
 
-    iters: torch.Tensor       # (S,) iterations executed per scale
+    iters: torch.Tensor       # (S,) iterations executed per scale; (S, P)
+    #                           for levels that are stacks of P planes
     normdp: torch.Tensor      # (S, ...) final |dp|_1 per scale
     valid_ref: torch.Tensor   # (S, ...) in-frustum reference points
     hessian: torch.Tensor | None = None  # (..., 6, 6) finest-scale GN
@@ -157,8 +164,13 @@ def _fused_scale(level_ref, level_new, uv_ref, Xc_safe, valid_ref, origins,
             wts.reshape(-1, 4).float().contiguous(),
             valid_new.reshape(-1).float().contiguous(),
             patch_norm=cfg.dopatchnorm).reshape(lead + (N, 2)).to(jx.dtype)
-        return (torch.matmul(jx.transpose(-1, -2), g[..., 0:1])
-                + torch.matmul(jy.transpose(-1, -2), g[..., 1:2]))[..., 0]
+        # rhs = jx^T gx + jy^T gy, with gx and gy each contiguous (one copy):
+        # a strided vector sends one problem's product down another
+        # summation path than a batch's on the CPU, and a stream of the
+        # multi-stream engine would then depend on the streams beside it
+        gt = g.transpose(-1, -2).contiguous()
+        return (torch.matmul(jx.transpose(-1, -2), gt[..., 0, :, None])
+                + torch.matmul(jy.transpose(-1, -2), gt[..., 1, :, None]))[..., 0]
 
     return H, rhs_of
 
@@ -221,12 +233,15 @@ def _track_one_scale(level_ref, level_new, Xn, Xc_ref, uv_ref, p, cam_level,
                       cam_level, cfg)
 
     dev = p.device
+    # per problem of a stack of planes (jax.vmap's count), else one count
+    stacked = level_ref.img.dim() == 3
     it_count = torch.zeros((), dtype=torch.int32, device=dev)
     normdp = torch.full(lead, _NORMDP_INIT, dtype=p.dtype, device=dev)
     active = torch.ones(lead, dtype=torch.bool, device=dev)
     G_cur = lie.se3_exp(p)
     for it in range(cfg.maxiter):
-        entered = torch.any(active)
+        entered = (active.reshape(active.shape[0], -1).any(-1) if stacked
+                   else torch.any(active))
         it_count = it_count + entered.to(torch.int32)
         # [7] project with the current pose (chirality-gated)
         uv_new, Xc_new = pose_ops.project_points(G_cur, Xn, fx, fy, cx, cy,
@@ -244,7 +259,7 @@ def _track_one_scale(level_ref, level_new, Xn, Xc_ref, uv_ref, p, cam_level,
         if it == 0:  # every lane is active on entry
             normdp_init = ndp_new
         active = active & ((normdp / normdp_init) > cfg.normdp_ratio)
-        if cfg.verbosity >= 2 and bool(entered):
+        if cfg.verbosity >= 2 and bool(entered.any()):
             # the reference's per-iteration print; syncs only here
             print(f"Sc{scale_index:02d},It{it:02d}: {float(torch.mean(normdp))}")
     return p, (it_count, normdp, torch.sum(valid_ref, dim=-1), H)
@@ -258,7 +273,9 @@ def track_pose(pyr_ref: Pyramid, pyr_new: Pyramid, X: torch.Tensor,
 
     pyr_ref/pyr_new: pyramids with >= cfg.lv_f + 1 levels, padded by psz.
     X: (..., N, 3) world points; p_init: (..., 6) se(3) pose of
-    [R | t] world->cam.  Returns the refined pose (and ICGNAux).
+    [R | t] world->cam.  Returns the refined pose (and ICGNAux).  Levels
+    that are stacks of S planes take X (S, ..., N, 3), p_init (S, ..., 6)
+    and point_mask (S, ..., N): problem s tracks on pair s.
     """
     dtype = p_init.dtype
     X = X.to(dtype)

@@ -171,3 +171,44 @@ def test_ba_psum_axis_raises(rng):
         win.ba_solve(prob, num_iters=1, psum_axis="model")
     with pytest.raises(NotImplementedError):
         win.ba_residuals(prob, psum_axis="model")
+
+
+@pytest.mark.parametrize("solver", ["dense", "cg"])
+def test_ba_solve_on_stacked_windows_equals_each_window_alone(rng, solver):
+    """Two windows with a leading axis (the multi-stream engine's call),
+    one noisy and one near its optimum so that their accept/reject and
+    damping paths part, with information-weighted odometry factors and a
+    per-window motion-only gate: each window ends where it ends as a stack
+    of one (the one-stream engine's call), bit for bit, and within 1e-5
+    of its call without the leading axis (whose products with a vector
+    take another summation path; measured 1e-6)."""
+    ds, odos = [], []
+    for noise, pp in ((0.3, 0.02), (0.01, 0.001)):
+        d, poses_gt = _make_problem(rng, noise=noise, perturb_pose=pp, perturb_lm=0.05)
+        ds.append(d)
+        odos.append(_odo(poses_gt, info=True, rng=rng))
+    stack = {k: np.stack([d[k] for d in ds]) for k in ds[0] if k not in ("fx", "fy", "cx", "cy")}
+    stack.update({k: ds[0][k] for k in ("fx", "fy", "cx", "cy")})
+    assert all(np.array_equal(ds[0][k], ds[1][k]) for k in ("fx", "fy", "cx", "cy"))
+    odo = {k: (np.stack([o[k] for o in odos]) if k in ("rel", "mask", "info_sqrt")
+               else odos[0][k]) for k in odos[0]}
+    kw = dict(num_iters=6, huber_delta=1.5, lm_eig_floor=5e-3, lm_step_clip=0.1,
+              damp_min=1e-5, reduced_solver=solver)
+    mo = torch.tensor([False, True])
+    p2, l2, (e2, e20) = win.ba_solve(_to_torch(stack, win.BAProblem),
+                                     odo=_to_torch(odo, win.OdoFactors), motion_only=mo, **kw)
+    def one(d, keep):
+        return {k: (v[None] if k not in ("fx", "fy", "cx", "cy", "w_t", "w_r") and keep
+                    and v is not None else v) for k, v in d.items()}
+
+    for s in range(2):
+        p1, l1, (e1, e10) = win.ba_solve(_to_torch(one(ds[s], True), win.BAProblem),
+                                         odo=_to_torch(one(odos[s], True), win.OdoFactors),
+                                         motion_only=mo[s:s + 1], **kw)
+        assert torch.equal(p2[s], p1[0]) and torch.equal(l2[s], l1[0])
+        assert torch.equal(e2[s], e1[0]) and torch.equal(e20[s], e10[0])
+        p0, l0, _ = win.ba_solve(_to_torch(ds[s], win.BAProblem),
+                                 odo=_to_torch(odos[s], win.OdoFactors),
+                                 motion_only=bool(mo[s]), **kw)
+        assert float((p0 - p1[0]).abs().max()) <= 1e-5
+        assert float((l0 - l1[0]).abs().max()) <= 1e-5

@@ -10,7 +10,9 @@ pointer (``void*`` included) declared ``c_void_p`` and each ``int``
 ``c_int``.  Then the wrappers of the kernels that take the centres (K1,
 K4, K5, K6, K9) run their card path on CPU tensors against a stand-in
 library that records the call: what they pass, and that they prepare no
-indices or weights (on the card such a call is one device op).
+indices or weights (on the card such a call is one device op); K1, K5,
+K6, K7 and K9 also on a stack of P planes, the multi-stream engine's
+call, which passes P and the stack's pointer.
 """
 
 import ctypes
@@ -94,6 +96,18 @@ def test_k5_k6_wrappers_pass_centres_and_nothing_else(monkeypatch, kernel):
     """K5, K6 and the kernels that took their indices from torch before
     (K1, K9, K4): one entry call, the centres (and K1's and K9's window
     origins) passed as they are, nothing computed in torch before it."""
+    _drive_card_path(monkeypatch, kernel, stacked=False)
+
+
+@pytest.mark.parametrize("kernel", [k for k in _CENTRE_KERNELS if k != "ncc3_scores"])
+def test_gather_wrappers_pass_a_plane_stack(monkeypatch, kernel):
+    """K1, K5, K6 and K9 on a stack of P = 3 planes with centres (P, 7, 2)
+    (the multi-stream engine's call): one entry call with P, the stack's
+    pointer and the centres as they are, nothing computed before it."""
+    _drive_card_path(monkeypatch, kernel, stacked=True)
+
+
+def _drive_card_path(monkeypatch, kernel, stacked):
     lib = _Recorder()
     mod, key, entry_name = _CENTRE_KERNELS[kernel]
     monkeypatch.setattr(patch_gather, "on_card", lambda name, t: True)
@@ -111,6 +125,11 @@ def test_k5_k6_wrappers_pass_centres_and_nothing_else(monkeypatch, kernel):
     lvls = [build_pyramid(torch.tensor(rng.uniform(0, 255, (40, 56)).astype(np.float32)),
                           1, pad)[0] for _ in range(3)]
     lvl = lvls[0]
+    if stacked:
+        lvl, q_img = (type(lvl)(*(torch.stack([lv[k] for lv in lvls]) for k in range(3))),
+                      torch.stack([lv.img for lv in lvls[::-1]]))
+    else:
+        q_img = lvls[1].img
     centers = torch.tensor(rng.uniform(0, 50, (3, 7, 2)).astype(np.float32))
     origins = torch.tensor(rng.integers(-3, 50, (3, 7, 2)).astype(np.int32))
     uvs = (centers + 0.5, centers, centers - 0.25)
@@ -121,7 +140,7 @@ def test_k5_k6_wrappers_pass_centres_and_nothing_else(monkeypatch, kernel):
     elif kernel == "ncc3_scores":
         args = (*(lv.img for lv in lvls), *uvs, psz, pad)
     else:
-        args = (lvl, lvls[1].img, centers, origins, psz, pad, 16)
+        args = (lvl, q_img, centers, origins, psz, pad, 16)
 
     def ops_of(patch_norm):
         kw = {} if kernel == "ncc3_scores" else {"patch_norm": patch_norm}
@@ -141,7 +160,8 @@ def test_k5_k6_wrappers_pass_centres_and_nothing_else(monkeypatch, kernel):
     for a, ctype in zip(args_c, _build._SIGNATURES[entry]):
         ctype(a)                                    # each converts as declared
     M = centers.shape[0] * centers.shape[1]
-    Hp, Wp = lvl.img.shape
+    Hp, Wp = lvl.img.shape[-2:]
+    P = 3 if stacked else 1
     if kernel == "ncc3_scores":
         assert args_c[:5] == (*(lv.img.data_ptr() for lv in lvls), Hp, Wp)
         assert args_c[5:8] == tuple(u.data_ptr() for u in uvs)
@@ -150,16 +170,16 @@ def test_k5_k6_wrappers_pass_centres_and_nothing_else(monkeypatch, kernel):
         for o in outs:
             assert o.shape == (3, 7) and o.dtype == torch.float32
     elif kernel.startswith("gather_ref"):
-        assert args_c[:6] == (lvl.img.data_ptr(), lvls[1].img.data_ptr(), Hp, Wp,
+        assert args_c[:7] == (lvl.img.data_ptr(), q_img.data_ptr(), P, Hp, Wp,
                               centers.data_ptr(), origins.data_ptr())
-        assert args_c[6:10] == tuple(o.data_ptr() for o in out)
+        assert args_c[7:11] == tuple(o.data_ptr() for o in out)
         assert args_c[-3:] == (M, pad, 1234)
         outs = out[:3]
         assert out[3].shape == (3, 7, 16, 16)
     else:
         outs = (out,) if kernel == "gather_patches" else out
-        assert args_c[:4] == (lvl.img.data_ptr(), Hp, Wp, centers.data_ptr())
-        assert args_c[4:4 + len(outs)] == tuple(o.data_ptr() for o in outs)
+        assert args_c[:5] == (lvl.img.data_ptr(), P, Hp, Wp, centers.data_ptr())
+        assert args_c[5:5 + len(outs)] == tuple(o.data_ptr() for o in outs)
         assert args_c[-4:] == (M, psz, pad, 1234)
     if kernel != "ncc3_scores":
         for o in outs:
@@ -171,3 +191,30 @@ def test_k5_k6_wrappers_pass_centres_and_nothing_else(monkeypatch, kernel):
     # the patch mean is the plain version's torch.mean, after the launch
     assert "aten::mean" in ops_of(True)[1]
     assert mod.launches[key] == 2
+
+
+@pytest.mark.parametrize("stacked", [False, True], ids=["plane", "stack"])
+def test_k7_wrapper_passes_the_stack_and_clamped_origins(monkeypatch, stacked):
+    """K7 on a plane and on a stack of P = 2 planes: one entry call with P,
+    Hp, Wp and the origins moved inside the plane (the wrapper's 4 ops)."""
+    lib = _Recorder()
+    monkeypatch.setattr(patch_gather, "on_card", lambda name, t: True)
+    monkeypatch.setattr(_build, "load", lambda: lib)
+    monkeypatch.setattr(_build, "stream_ptr", lambda device: 1234)
+    monkeypatch.setattr(patch_gather, "launches", dict.fromkeys(patch_gather.launches, 0))
+    rng = np.random.default_rng(17)
+    P = 2 if stacked else 1
+    planes = torch.tensor(rng.uniform(0, 255, (P, 30, 44)).astype(np.float32))
+    img = planes if stacked else planes[0]
+    origins = torch.tensor(rng.integers(-20, 50, (P, 5, 2)).astype(np.int32))
+    out = patch_gather.gather_windows(img, origins, 12, 12)
+    assert out.shape == (P, 5, 12, 12)
+    (entry, args_c), = lib.calls
+    assert entry == "icgn_gather_windows"
+    assert len(args_c) == len(_build._SIGNATURES[entry])
+    assert args_c[:4] == (img.data_ptr(), P, 30, 44)
+    assert args_c[5:] == (out.data_ptr(), P * 5, 12, 12, 1234)
+    assert patch_gather.launches["gather_windows"] == 1
+    # a stack of 3 planes with the origins of P groups
+    with pytest.raises(ValueError, match="takes points"):
+        patch_gather.gather_windows(torch.zeros(3, 30, 44), origins, 12, 12)

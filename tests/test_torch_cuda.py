@@ -29,6 +29,9 @@ Tolerances (kernel vs plain version, same inputs, both on the card):
 - K9: K1's own device functions on the same floats: equal to K1 and to
   the plain version bit for bit; the tracker's poses with
   ``gather_prefetch=True`` equal those without it bit for bit.
+- K1, K5, K6, K7, K9 on a stack of planes (the multi-stream engine's
+  call): the same operations per point, on the point's own plane: equal
+  to the plain version and to one call per plane, bit for bit.
 - ``dense_flow_lk``, card vs CPU: measured 0.0 px at every pixel on an
   H100 (torch 2.11, CUDA 12.8: the card's and the CPU's box convolutions
   sum in one order); another convolution algorithm need not, so the
@@ -556,3 +559,67 @@ def test_vo_engine_on_card_matches_cpu(cuda_device):
         assert np.isfinite(np.stack(vo.trajectory)).all()
     gaps = np.abs(out["cuda"] - out["cpu"]).max(axis=1)
     assert np.median(gaps) <= 1e-3 and gaps.max() <= 5e-3, gaps
+
+
+@pytest.mark.parametrize("patch_norm", [False, True])
+def test_gathers_on_a_plane_stack_match_plain_and_single_planes(pair, cuda_device,
+                                                                 patch_norm):
+    """K1, K9, K5, K6 and K7 on a stack of P = 3 planes (levels 1 of three
+    images), 206 points per plane with the edge centres on the first: one
+    launch each, equal bit for bit to the plain version on the stack and to
+    P calls on one plane each."""
+    _, _, img_ref, img_new, _ = pair
+    dev = cuda_device
+    imgs = torch.stack([t32(img_ref, dev), t32(img_new, dev), t32(img_ref, dev).flip(-1)])
+    lvl = build_pyramid(imgs, 2, PAD)[1]
+    query = lvl.img.flip(0).contiguous()
+    rng = np.random.default_rng(12)
+    w, h = 160.0, 120.0
+    centers = np.stack([np.r_[np.c_[rng.uniform(0, w, 200), rng.uniform(0, h, 200)],
+                              [[w, h], [0.2, h], [w, 3.5], [0, 0], [0, h], [w, 0]]]
+                        for _ in range(3)])
+    centers = torch.cat([t32(centers, dev), t32(_edge_centers(w, h), dev)[None].expand(
+        3, -1, 2)], dim=1).contiguous()
+    origins = ws.window_origin(centers + 1.5, PSZ, WIN, PAD)
+    calls = {
+        "gather_ref_grad_windows": (
+            lambda L, q, c, o: patch_gather.gather_ref_grad_windows(
+                L, q, c, o, PSZ, PAD, WIN, patch_norm),
+            lambda L, q, c, o: patch_gather.gather_ref_grad_windows_plain(
+                L, q, c, o, PSZ, PAD, WIN, patch_norm)),
+        "gather_ref_grad_windows_prefetch": (
+            lambda L, q, c, o: patch_prefetch.gather_ref_grad_windows_prefetch(
+                L, q, c, o, PSZ, PAD, WIN, patch_norm),
+            lambda L, q, c, o: patch_prefetch.gather_ref_grad_windows_prefetch_plain(
+                L, q, c, o, PSZ, PAD, WIN, patch_norm)),
+        "gather_patches": (
+            lambda L, q, c, o: patch_gather.gather_patches(L.img, c, PSZ, PAD, patch_norm),
+            lambda L, q, c, o: patch_gather.gather_patches_plain(L.img, c, PSZ, PAD,
+                                                                 patch_norm)),
+        "gather_patches_grad": (
+            lambda L, q, c, o: patch_gather.gather_patches_grad(L.img, L.dx, L.dy, c, PSZ,
+                                                                PAD, patch_norm),
+            lambda L, q, c, o: patch_gather.gather_patches_grad_plain(L.img, L.dx, L.dy, c,
+                                                                      PSZ, PAD, patch_norm)),
+        "gather_windows": (
+            lambda L, q, c, o: patch_gather.gather_windows(q, o, WIN, WIN),
+            lambda L, q, c, o: patch_gather.gather_windows_plain(q, o, WIN, WIN)),
+    }
+    for name, (kern, plain) in calls.items():
+        counts = (patch_prefetch.launches if name.endswith("prefetch")
+                  else patch_gather.launches)
+        n0 = counts[name]
+        got = kern(lvl, query, centers, origins)
+        assert counts[name] == n0 + 1
+        want = plain(lvl, query, centers, origins)
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        for p in range(3):
+            one = kern(PyramidLevel(*(a[p] for a in lvl)), query[p], centers[p], origins[p])
+            one = one if isinstance(one, tuple) else (one,)
+            for g, o in zip(got, one):
+                torch.testing.assert_close(g[p], o, rtol=0, atol=0, equal_nan=True)
+        for g, w_ in zip(got, want):
+            assert g.shape[:2] == (3, centers.shape[1])
+            torch.testing.assert_close(g, w_, rtol=0, atol=0, equal_nan=True)
+    with pytest.raises(ValueError, match="takes points"):
+        patch_gather.gather_patches(lvl.img, centers[:2], PSZ, PAD)

@@ -20,13 +20,15 @@ def _run(args, cwd, env_extra=None):
 
 def test_port_imports_no_jax():
     """Every module of the port, found by walking the package, imports
-    without bringing in JAX or anything of the JAX package; and no source
+    without bringing in JAX or anything of the JAX package (the engines
+    ``VisualOdometry`` and ``VisualOdometryBatch`` among them); and no source
     line of the port or of chip_smoke.py names either in an import."""
     code = ("import importlib, pkgutil, sys\n"
             "import invcompcamtrack_torch as pkg\n"
             "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
             "for name in names:\n"
             "    importlib.import_module(name)\n"
+            "from invcompcamtrack_torch.vo.engine import VisualOdometry, VisualOdometryBatch\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'invcompcamtrack_tpu'))\n"
             "slice4 = {'ba.window', 'sfm.triangulate', 'sfm.epipolar', 'sfm.twoview',\n"
             "          'vo.engine', 'vo.metrics', 'vo.datasets', 'utils.metrics'}\n"

@@ -1,8 +1,10 @@
 """The plain versions of the gathers K5, K6 and K7
 (``ops/patch_gather.py``) against the JAX package's XLA twins and
 against the TPU kernels themselves, run by Pallas in interpret mode on
-the CPU, and the wrappers' dispatch.  The CUDA kernels are held against
-these plain versions on the card (``tests/test_torch_cuda.py``).
+the CPU, and the wrappers' dispatch; on a stack of planes (the
+multi-stream engine's call, K1 and K9 too) against ``jax.vmap`` of the
+XLA twins.  The CUDA kernels are held against these plain versions on
+the card (``tests/test_torch_cuda.py``).
 
 One level (64x48, pad = psz) of a rendered 128x96 frame; 20 interior
 centers, then centers on and beyond the frustum border; psz 8 and 6.
@@ -35,7 +37,7 @@ from invcompcamtrack_tpu.ops import patch_pallas as jpallas
 from invcompcamtrack_tpu.ops import window_sample as jws
 from invcompcamtrack_torch import convert
 from invcompcamtrack_torch.image import patch as tpatch
-from invcompcamtrack_torch.ops import patch_gather
+from invcompcamtrack_torch.ops import patch_gather, patch_prefetch
 from invcompcamtrack_torch.ops import window_sample as ws
 from tests.torch_helpers import make_pair, t32
 
@@ -188,3 +190,72 @@ def test_sample_from_windows_matches_jax(case):
         got = ws.sample_from_windows(t32(np.asarray(wins)), torch.tensor(c["origins"][:n]),
                                      t32(moved), c["psz"], c["pad"], patch_norm=pn).numpy()
         np.testing.assert_allclose(got, want, rtol=0, atol=4e-5)
+
+
+@pytest.fixture(scope="module")
+def stack_case():
+    """P = 2 planes (level 1 of the two frames of a 128x96 pair) with 14
+    interior and 4 border centres each, and the window origins."""
+    rng = np.random.default_rng(41)
+    _, _, img_a, img_b, _ = make_pair(rng, 4, wh=(128, 96))
+    out = {}
+    for psz in (8, 6):
+        jl = [jbuild(jnp.asarray(im), 2, psz)[1] for im in (img_a, img_b)]
+        jst = type(jl[0])(*(jnp.stack([lv[k] for lv in jl]) for k in range(3)))
+        tst = convert.pyramid_from_numpy([[np.asarray(a) for a in jst]], "cpu")[0]
+        cs = np.stack([np.r_[np.c_[rng.uniform(8, W - 8, 14), rng.uniform(8, H - 8, 14)],
+                             [[W, H], [0.2, H], [0.0, 0.0], [W, 20.5]]]
+                       for _ in range(2)]).astype(np.float32)
+        win = psz + 8
+        origins = np.asarray(jws.window_origin(
+            jnp.asarray(cs + rng.uniform(-2, 2, cs.shape).astype(np.float32)), psz, win, psz))
+        out[psz] = dict(jst=jst, tst=tst, centers=cs, origins=origins, win=win)
+    return out
+
+
+@pytest.mark.parametrize("psz", [8, 6])
+@pytest.mark.parametrize("patch_norm", [False, True])
+def test_plain_gathers_on_a_stack_match_vmapped_xla_twins(stack_case, psz, patch_norm):
+    """K5, K6, K7 and the dual gather of K1 and K9 (psz 8) on a stack of
+    P = 2 planes, centres (2, 18, 2): the plain versions against
+    ``jax.vmap`` of the JAX package's XLA twins over the planes.  The
+    tolerances of the single-plane tests above: exact, 8e-5 for the
+    patch mean."""
+    c = stack_case[psz]
+    js, ts, win = c["jst"], c["tst"], c["win"]
+    jc, jo = jnp.asarray(c["centers"]), jnp.asarray(c["origins"])
+    tc, to = t32(c["centers"]), torch.tensor(c["origins"])
+    atol = 8e-5 if patch_norm else 0.0
+    want5 = jax.vmap(lambda im, ce: jpatch.extract_patches(
+        im, ce, psz, psz, patch_norm, use_pallas=False))(js.img, jc)
+    np.testing.assert_allclose(patch_gather.gather_patches_plain(ts.img, tc, psz, psz,
+                                                                 patch_norm).numpy(),
+                               np.asarray(want5), rtol=0, atol=atol)
+    want6 = jax.vmap(lambda im, dx, dy, ce: jpatch.extract_patches_grad(
+        im, dx, dy, ce, psz, psz, patch_norm, use_pallas=False))(js.img, js.dx, js.dy, jc)
+    got6 = patch_gather.gather_patches_grad_plain(ts.img, ts.dx, ts.dy, tc, psz, psz,
+                                                  patch_norm)
+    for k, (g, w) in enumerate(zip(got6, want6)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=atol if k == 0 else 0.0)
+    want7 = jax.vmap(lambda im, o: jws.gather_windows_any(im, o, win))(js.img, jo)
+    np.testing.assert_array_equal(patch_gather.gather_windows_plain(ts.img, to, win, win)
+                                  .numpy(), np.asarray(want7))
+    if psz != 8:
+        return
+    query = ts.img.flip(0).contiguous()        # each plane's partner as the query
+    for plain in (patch_gather.gather_ref_grad_windows_plain,
+                  patch_prefetch.gather_ref_grad_windows_prefetch_plain):
+        got = plain(ts, query, tc, to, psz, psz, win, patch_norm)
+        for k, (g, w) in enumerate(zip(got[:3], want6)):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                       atol=atol if k == 0 else 0.0)
+        want_q = jax.vmap(lambda im, o: jws.gather_windows_any(im, o, win))(
+            js.img[::-1], jo)
+        np.testing.assert_array_equal(got[3].numpy(), np.asarray(want_q))
+        # and each plane's points as a call on that plane alone
+        for p in range(2):
+            lvl = type(ts)(*(a[p] for a in ts))
+            one = plain(lvl, query[p], tc[p], to[p], psz, psz, win, patch_norm)
+            for g, w in zip(got, one):
+                assert torch.equal(g[p], w)
