@@ -13,9 +13,10 @@ port therefore keeps TF32 off for float32 matrix products and
 convolutions on the card; importing the package sets both flags.
 
 This package imports ``torch`` and never ``jax``, and nothing of the JAX
-package: ``config.py``, ``vo/synthetic.py``, ``utils/io.py`` and
-``utils/image.py`` are its own copies of the JAX package's jax-free
-modules.  ``ICGNParams`` and ``synthetic`` are re-exported here.
+package: ``config.py``, ``vo/{synthetic,datasets}.py`` and
+``utils/{io,image,viz,metrics,rotation,splines,sensors,plot3d,native}.py``
+are its own copies of the JAX package's jax-free modules.  ``ICGNParams``
+and ``synthetic`` are re-exported here.
 
 Entry points run on the card unless the caller passes ``device="cpu"``
 (``device.py``).

@@ -3,7 +3,9 @@ the port, and back.
 
 The trackers have no weights: their state is the pyramids, the camera,
 the world points, the poses, for the optical-flow point tracker the
-track table, and for the VO engine its ``VOState``.  These helpers take them as numpy arrays, or
+track table, for the VO engine its ``VOState`` and for the pose-graph
+optimiser its ``PoseGraph``; the VGG feature extractor's weights are a
+flax parameter tree.  These helpers take them as numpy arrays, or
 anything ``numpy.asarray`` accepts (a JAX array included, without this
 module importing JAX), and return the port's tensors on one device: the
 card, unless the caller passes ``device="cpu"``.  The tests feed both
@@ -17,6 +19,7 @@ from typing import Iterable, Sequence
 import numpy as np
 import torch
 
+from invcompcamtrack_torch.ba.pose_graph import PoseGraph
 from invcompcamtrack_torch.core.camera import CameraPyramid
 from invcompcamtrack_torch.device import resolve
 from invcompcamtrack_torch.image.pyramid import Pyramid, PyramidLevel, build_pyramid
@@ -120,3 +123,35 @@ def vo_state_from_numpy(state, device: torch.device | str | None = None):
         kf_ptr=int(np.asarray(state.kf_ptr)), cur_pose=t("cur_pose", f32),
         frame_idx=int(np.asarray(state.frame_idx)),
         kf_valid_host=tuple(bool(v) for v in kf_valid))
+
+
+def pose_graph_from_numpy(g, device: torch.device | str | None = None,
+                          dtype: torch.dtype = torch.float32) -> PoseGraph:
+    """Any object with the fields of ``ba/pose_graph.py::PoseGraph`` (such
+    as the JAX package's graph) -> the port's graph on one device: poses,
+    measurements and weights as ``dtype``, the edge indices int64, the
+    anchors bool."""
+    device = resolve(device)
+
+    def t(name, dt):
+        return tensor_from_numpy(np.asarray(getattr(g, name)), device, dt)
+
+    return PoseGraph(poses=t("poses", dtype), edges_i=t("edges_i", torch.int64),
+                     edges_j=t("edges_j", torch.int64), edges_meas=t("edges_meas", dtype),
+                     edges_weight=t("edges_weight", dtype),
+                     fixed_mask=t("fixed_mask", torch.bool))
+
+
+def features_params_from_numpy(params) -> dict:
+    """The flax ``VGGFeatures`` parameter tree (``{"params": {"conv0_0":
+    {"kernel": (3, 3, I, O), "bias": (O,)}, ...}}``, numpy or JAX arrays)
+    -> the port's ``VGGFeatures`` ``state_dict``: kernels HWIO -> OIHW,
+    float32 CPU tensors, for ``module.load_state_dict``."""
+    tree = params.get("params", params)
+    out = {}
+    for name, p in tree.items():
+        kernel = np.asarray(p["kernel"], np.float32)
+        out[f"{name}.weight"] = torch.from_numpy(
+            np.ascontiguousarray(kernel.transpose(3, 2, 0, 1)))
+        out[f"{name}.bias"] = torch.from_numpy(np.array(p["bias"], np.float32))
+    return out

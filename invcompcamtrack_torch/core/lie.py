@@ -122,3 +122,21 @@ def se3_compose(Ga: torch.Tensor, Gb: torch.Tensor) -> torch.Tensor:
     R = matmat(Ra, Gb[..., :3])
     t = matvec(Ra, Gb[..., 3]) + ta
     return torch.cat([R, t[..., None]], dim=-1)
+
+
+def se3_matrix(G: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 4) -> homogeneous (..., 4, 4)."""
+    bottom = torch.zeros(G.shape[:-2] + (1, 4), dtype=G.dtype, device=G.device)
+    bottom[..., 0, 3] = 1.0
+    return torch.cat([G, bottom], dim=-2)
+
+
+def so3_exp(w: torch.Tensor) -> torch.Tensor:
+    """Rodrigues: (..., 3) -> (..., 3, 3) rotation."""
+    return se3_exp(torch.cat([torch.zeros_like(w), w], dim=-1))[..., :3]
+
+
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """Rotation -> axis-angle vector (..., 3)."""
+    G = torch.cat([R, torch.zeros_like(R[..., :1])], dim=-1)
+    return se3_log(G)[..., 3:6]

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from invcompcamtrack_torch.core import lie
+from invcompcamtrack_torch.core.camera import distort
 
 
 def normalize_points(X: torch.Tensor, mask: torch.Tensor | None = None):
@@ -79,6 +80,26 @@ def in_frustum(uv: torch.Tensor, swo, sho) -> torch.Tensor:
     """Invalid iff x<0 | y<0 | x>swo | y>sho (border-inclusive)."""
     x, y = uv[..., 0], uv[..., 1]
     return (x >= 0) & (y >= 0) & (x <= swo) & (y <= sho)
+
+
+def reproject(X: torch.Tensor, R: torch.Tensor, t: torch.Tensor, fc, cc, kc=None,
+              camcenter: bool = False) -> torch.Tensor:
+    """The python layer's reprojection with optional distortion
+    (reference: func_util_geom.py:519-536); leading axes broadcast.
+
+    camcenter=False: x_cam = R (X - t)   [t = world camera center]
+    camcenter=True:  x_cam = R X - t
+    """
+    if camcenter:
+        Xc = torch.einsum("...ij,...nj->...ni", R, X) - t[..., None, :]
+    else:
+        Xc = torch.einsum("...ij,...nj->...ni", R, X - t[..., None, :])
+    pn = Xc[..., 0:2] / Xc[..., 2:3]
+    if kc is not None:
+        pn = distort(pn, kc)
+    fc = torch.as_tensor(fc, dtype=pn.dtype, device=pn.device)
+    cc = torch.as_tensor(cc, dtype=pn.dtype, device=pn.device)
+    return pn * fc + cc
 
 
 def projection_matrix(fc, cc, R: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:

@@ -623,3 +623,68 @@ def test_gathers_on_a_plane_stack_match_plain_and_single_planes(pair, cuda_devic
             torch.testing.assert_close(g, w_, rtol=0, atol=0, equal_nan=True)
     with pytest.raises(ValueError, match="takes points"):
         patch_gather.gather_patches(lvl.img, centers[:2], PSZ, PAD)
+
+
+def test_feature_descriptors_one_k5_launch_on_card(cuda_device):
+    """``vo/features_dnn.py::feature_patch_descriptors`` on the card: one
+    K5 launch on the stack of C padded maps, equal bit for bit to C
+    one-plane launches and to the plain version (the CPU's result)."""
+    from invcompcamtrack_torch.vo import features_dnn
+
+    rng = np.random.default_rng(13)
+    dev = cuda_device
+    mod = features_dnn.init_features(torch.Generator().manual_seed(0), device=dev)
+    img = t32(rng.uniform(0, 255, (96, 128)), dev)
+    feat = features_dnn.extract_feature_maps(mod, img)[0].contiguous()
+    C, H, W = feat.shape
+    cen = t32(np.c_[rng.uniform(-2, W + 1, 300), rng.uniform(-2, H + 1, 300)], dev)
+    n0 = patch_gather.launches["gather_patches"]
+    desc = features_dnn.feature_patch_descriptors(feat, cen)
+    assert patch_gather.launches["gather_patches"] == n0 + 1
+    planes = torch.nn.functional.pad(feat[None], (PSZ,) * 4, mode="replicate")[0].contiguous()
+    one = torch.stack([patch_gather.gather_patches(planes[c].contiguous(), cen, PSZ, PSZ)
+                       for c in range(C)], dim=-1)
+    torch.testing.assert_close(desc, one, rtol=0, atol=0)
+    cpu = features_dnn.feature_patch_descriptors(feat.cpu(), cen.cpu())
+    torch.testing.assert_close(desc.cpu(), cpu, rtol=0, atol=0)
+
+
+def test_fit_camera_ransac_on_card_matches_cpu(pair, cuda_device):
+    """``sfm/ransac.py::fit_camera_ransac`` (S = 64 six-point samples of 60
+    plane points, 12 of them outliers) on the card against the CPU: the
+    same valid flags but for the few hypotheses whose refit rests on a
+    handful of points (their float32 eigensolvers part), G within the
+    float32 eigensolvers' spread at the median, and the hypothesis with
+    the most inliers at the CPU's camera centre."""
+    from invcompcamtrack_torch.sfm.epipolar import sample_indices
+    from invcompcamtrack_torch.sfm.ransac import fit_camera_ransac
+
+    scene, p_gt, _, _, X = pair
+    rng = np.random.default_rng(14)
+    X = np.r_[X, synthetic.sample_plane_points(scene, rng, 28).astype(np.float32)]
+    G = lie.se3_exp(torch.tensor(p_gt, dtype=torch.float64)).numpy()
+    Xc = X @ G[:, :3].T + G[:, 3]
+    uv = Xc[:, :2] / Xc[:, 2:] * np.asarray(scene.fc) + np.asarray(scene.cc)
+    uv += rng.normal(size=uv.shape) * 0.3
+    uv[:12] += rng.uniform(30, 120, size=(12, 2))
+    idx = sample_indices(len(X), 64, k=6, generator=torch.Generator().manual_seed(0))
+    thresh = float(np.hypot(*scene.wh)) / 100.0
+    out = {d: fit_camera_ransac(idx, t32(uv, d), t32(X, d), scene.fc, scene.cc,
+                                inl_thresh=thresh) for d in ("cpu", cuda_device)}
+    card, cpu = out[cuda_device], out["cpu"]
+    assert int((card.valid.cpu() != cpu.valid).sum()) <= 6
+    both = card.valid.cpu() & cpu.valid
+    assert int(both.sum()) >= 5
+    gap = (card.G.cpu() - cpu.G).abs().amax((1, 2))[both]
+    assert float(gap.median()) <= 1e-3, gap
+    def most_inliers_centre(res):
+        best = int(torch.argmax(torch.where(res.valid, res.num_inliers,
+                                            torch.full_like(res.num_inliers, -1))))
+        return lie.camera_center(res.G[best].cpu().double()).numpy()
+
+    c_card, c_cpu = most_inliers_centre(card), most_inliers_centre(cpu)
+    c_gt = -G[:, :3].T @ G[:, 3]
+    assert float(np.linalg.norm(c_card - c_cpu)) < 5e-3
+    # (a 320x240 plane at fc 300 with 0.3 px noise: a loose accuracy bound)
+    assert float(np.linalg.norm(c_cpu - c_gt)) < 0.1
+    assert bool(torch.isfinite(card.poses[card.valid]).all())

@@ -21,11 +21,13 @@ import torch
 
 from invcompcamtrack_tpu.config import ICGNParams as JParams
 from invcompcamtrack_tpu.core.camera import CameraPyramid as JCam
+from invcompcamtrack_tpu.utils import checkpoint as jcheckpoint
 from invcompcamtrack_tpu.vo import engine as jeng
 from invcompcamtrack_tpu.vo import synthetic
 from invcompcamtrack_torch import ICGNParams, convert
 from invcompcamtrack_torch.core import lie
 from invcompcamtrack_torch.core.camera import CameraPyramid
+from invcompcamtrack_torch.utils import checkpoint
 from invcompcamtrack_torch.vo import engine
 from invcompcamtrack_torch.vo.metrics import ate_rmse
 from tests.oracles import geometry_np as geo
@@ -34,6 +36,8 @@ import tests.torch_helpers  # noqa: F401  (one torch thread per process)
 
 N_FRAMES = 10
 SEED_SHIFT = 1e-6
+# the frame after which the JAX engine's checkpoint is taken (a keyframe)
+CKPT_FRAME = 4
 # Per-frame poses, the port vs the JAX engine: measured 3.6e-5 at most
 # (frames 2-7 within 4e-6, then the keyframe of frame 8); the JAX engine
 # against itself over 8 runs with the seeds moved by 1e-6: 8.2e-5 at most
@@ -87,10 +91,10 @@ def _torch_vo(scene, **kw):
                                  engine.VOConfig(tracker=tr, **_cfg_kw(**kw)), device="cpu")
 
 
-def _run(vo, imgs, poses_gt, seeds, n, boot=None):
+def _run(vo, imgs, poses_gt, seeds, n, boot=None, after=None):
     """bootstrap + frames 2..n-1 -> per-frame (poses, live landmarks,
     newest keyframe's observation mask); ``boot`` (a list) receives the
-    bootstrapped state."""
+    bootstrapped state; ``after(i, vo)`` is called after frame i."""
     vo.trajectory = []
     vo.bootstrap(imgs[0], imgs[1], poses_gt[0], poses_gt[1], seeds)
     if boot is not None:
@@ -101,6 +105,8 @@ def _run(vo, imgs, poses_gt, seeds, n, boot=None):
         st = vo.state
         rows.append((p, int(np.asarray(st.lm_valid).sum()),
                      np.asarray(st.kf_obs_mask[int(st.kf_ptr)]).copy()))
+        if after is not None:
+            after(i, vo)
     return rows, np.stack(vo.trajectory)
 
 
@@ -109,7 +115,14 @@ def ref():
     rng = np.random.default_rng(0)
     scene, poses_gt, imgs, seeds = _setup(rng, N_FRAMES)
     vo = _jax_vo(scene)
-    jax_rows, jax_traj = _run(vo, imgs, poses_gt, seeds, N_FRAMES)
+    # the JAX engine's checkpoint after frame CKPT_FRAME (its keyframe)
+    ckpt = {}
+
+    def snapshot(i, engine_):
+        if i == CKPT_FRAME:
+            ckpt.update(jcheckpoint.vo_state_dict(engine_))
+
+    jax_rows, jax_traj = _run(vo, imgs, poses_gt, seeds, N_FRAMES, after=snapshot)
     moved = seeds + (np.random.default_rng(1).normal(size=seeds.shape)
                      * SEED_SHIFT).astype(np.float32)
     # the same engine instance: its compiled programs serve the other runs
@@ -123,7 +136,7 @@ def ref():
     rows2, _ = _run(vo, imgs2, poses2, seeds2, N_FRAMES, boot=boot2)
     return dict(scene=scene, poses_gt=poses_gt, imgs=imgs, seeds=seeds, moved=moved,
                 jax=jax_rows, jax_traj=jax_traj, spread=spread_rows,
-                imgs2=imgs2, jax2=rows2, jax2_boot=boot2[0])
+                imgs2=imgs2, jax2=rows2, jax2_boot=boot2[0], jax_ckpt=ckpt)
 
 
 @pytest.fixture(scope="module")
@@ -145,6 +158,27 @@ def test_engine_matches_jax_frame_by_frame(ref, port):
     for (_, _, m), (_, _, mj) in zip(rows, ref["jax"]):
         assert int((m != mj).sum()) <= MASK_TOL
     np.testing.assert_allclose(traj, ref["jax_traj"], atol=POSE_TOL)
+
+
+def test_jax_checkpoint_restores_into_the_port(ref, tmp_path):
+    """The JAX engine's ``vo_state_dict`` after frame CKPT_FRAME, through
+    an npz file, restores into a fresh port engine, which continues the
+    sequence within POSE_TOL of the JAX engine's own run; the port writes
+    the same keys, shapes and dtypes."""
+    saved = ref["jax_ckpt"]
+    checkpoint.save_checkpoint(tmp_path / "jax_vo", saved)
+    vo = _torch_vo(ref["scene"])
+    checkpoint.restore_vo_state(vo, checkpoint.restore_checkpoint(tmp_path / "jax_vo"))
+    assert vo.frame_idx == CKPT_FRAME + 1
+    mine = checkpoint.vo_state_dict(vo)
+    assert sorted(mine) == sorted(saved)
+    for k, v in saved.items():
+        assert mine[k].shape == np.shape(v) and mine[k].dtype == np.asarray(v).dtype, k
+    np.testing.assert_array_equal(mine["state.kf_pyr[1].img"], saved["state.kf_pyr[1].img"])
+    poses = [vo.process_frame(img) for img in ref["imgs"][CKPT_FRAME + 1:N_FRAMES]]
+    jax_poses = [r[0] for r in ref["jax"][CKPT_FRAME - 1:]]
+    assert max(np.abs(p - q).max() for p, q in zip(poses, jax_poses)) <= POSE_TOL
+    np.testing.assert_allclose(np.stack(vo.trajectory), ref["jax_traj"], atol=POSE_TOL)
 
 
 def test_engine_run_frames_matches_process_frame(ref, port):

@@ -32,7 +32,11 @@ def test_port_imports_no_jax():
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'invcompcamtrack_tpu'))\n"
             "slice4 = {'ba.window', 'sfm.triangulate', 'sfm.epipolar', 'sfm.twoview',\n"
             "          'vo.engine', 'vo.metrics', 'vo.datasets', 'utils.metrics'}\n"
-            "assert slice4 <= {n.split('.', 1)[1] for n in names}, names\n"
+            "slice5 = {'sfm.pnp', 'sfm.ransac', 'sfm.stereo', 'sfm.covariance',\n"
+            "          'sfm.trajectory', 'ba.pose_graph', 'vo.rig', 'vo.horizon',\n"
+            "          'vo.replay', 'vo.features_dnn', 'utils.checkpoint', 'utils.plot3d',\n"
+            "          'utils.rotation', 'utils.splines', 'utils.sensors', 'utils.native'}\n"
+            "assert slice4 | slice5 <= {n.split('.', 1)[1] for n in names}, names\n"
             "print(len(names), bad)\n"
             "sys.exit(1 if bad else 0)\n")
     res = _run(["-c", code], REPO)
@@ -40,7 +44,7 @@ def test_port_imports_no_jax():
     count, bad = res.stdout.strip().split(" ", 1)
     assert bad == "[]"
     # the walk saw the package: every slice's modules are among them
-    assert int(count) >= 52, res.stdout
+    assert int(count) >= 68, res.stdout
     sources = [*sorted((REPO / "invcompcamtrack_torch").rglob("*.py")), REPO / "chip_smoke.py"]
     for path in sources:
         for ln in path.read_text().splitlines():
