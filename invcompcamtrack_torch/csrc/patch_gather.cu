@@ -25,8 +25,9 @@
 //   K1: origins   (M, 2) int32 (row, col) window origins in the padded
 //                 plane, as solver/icgn.py::_entry_origins makes them; the
 //                 kernel moves each inside the plane (dual_index)
-//   K7: idx       int32 window row/col per point, prepared by
-//                 ops/patch_gather.py and already moved inside the plane
+//   K7: origins   (M, 2) int32 (row, col) window origins in the padded
+//                 plane, as the callers make them; the kernel moves each
+//                 inside the plane (clamp_start)
 // Supports and windows that would leave the plane are moved back inside
 // it: the dynamic_slice rule of the JAX package's XLA twins.
 // Outputs: patches (M, psz*psz), windows (M, wh*ww), all f32.
@@ -38,15 +39,45 @@
 // image window is the same subtraction of the same floats (the masks of
 // _kernel_grad_window).  One plane read per point instead of three.
 //
-// K1 and K7 on an H100: bytes written.  K1 writes 448 floats per point
-// (46 MB at 25,600 points), K7 wh*ww; the reads come from a level plane
-// that stays in the 50 MB L2 (the padded 1296x736 level 0 is 3.8 MB).
-// Design: one warp per point, eight points per block; K1 computes its
-// point's support start, weights and window origin from the centre and
-// the origin it is given (so a call is one launch, with no torch ops
-// before it), stages its halo in shared memory, then each lane computes
-// every 32nd output pixel and writes it with coalesced stores; windows
-// are copied 32 floats per instruction.
+// K1 on an H100: bytes written, 448 floats per point (46 MB at 25,600
+// points); the reads come from a level plane that stays in the 50 MB L2
+// (the padded 1296x736 level 0 is 3.8 MB).  Design: one warp per point,
+// eight points per block; K1 computes its point's support start, weights
+// and window origin from the centre and the origin it is given (so a
+// call is one launch, with no torch ops before it), stages its halo in
+// shared memory, then each lane computes every 32nd output pixel and
+// writes it with coalesced stores; windows are copied 32 floats per
+// instruction.
+//
+// K7 on an H100: bytes written.  At 25,600 points it writes 14.7 MB of 12x12
+// windows (the psz-4 tracker's; 18.7 MB with the pad-4 level plane and the
+// origins: 0.0056 ms at 3.35 TB/s) or 26.2 MB of 16x16 windows (sparse LK's
+// in the engine and the stereo chain; 30.2 MB: 0.0090 ms).  One warp per
+// point with the sides given at run time sits at twice that: a division and
+// a dependent load-then-store per element, one or two loads in flight per
+// lane, the last pass of a 12x12 window half idle, scalar stores.  So the
+// square sides psz + 8 of every even psz up to 16 (10, 12, ..., 24) are
+// template parameters, and the windows of consecutive points, which are
+// consecutive in the output, are one flat run of floats: a warp copies 512
+// of them at a time, whatever windows they belong to (several at 10x10 and
+// 12x12, two at 16x16).  The lanes of the first few load the run's origins,
+// clamp them and shuffle each window's plane offset to the lanes that copy
+// it; each lane issues its 16 loads, 32 consecutive output floats per warp
+// instruction (two or three window rows), through the read-only path before
+// it stores anything, stages them in shared memory in output order and
+// writes four float4s: 16-byte stores, 512 contiguous bytes per warp
+// instruction, at every templated side (a float4 may straddle two window
+// rows at the sides that are not a multiple of 4).  Window, row and column
+// come from divisions by the compile-time S*S and S.  The grid is the blocks
+// the card holds at once, each warp striding over the runs: one wave at any
+// M.  Each window's origin is clamped here, so a call is one launch with no
+// torch op before it.  Any other (wh, ww) takes one warp per point and the
+// sides at run time.
+// ptxas (CUDA 12.8, sm_90a): 32 registers per thread at every compiled
+// side but 14 and 22 (40), 16 KB of shared memory per block, no spills.
+// Measured at 25,600 points (chip_smoke.py, NVIDIA H100 80GB HBM3,
+// 700.00 W): 0.0077 ms at 12x12 (1.38 x the bound) and 0.0116 ms at
+// 16x16 (1.28 x).
 //
 // K5 and K6 write only psz^2 and 3 psz^2 floats per point, so a fixed
 // cost per point bounded their first design (one warp per point as K1):
@@ -68,6 +99,8 @@
 //
 // No per-point VMEM plan, lane alignment or two-phase plane copies of the
 // TPU kernels have a counterpart here.
+#include <algorithm>
+
 #include "patch_gather.cuh"
 
 namespace icgn {
@@ -236,17 +269,89 @@ gather_patches_direct_kernel(const float* __restrict__ img, int Hp, int Wp,
 }
 
 // ------------------------------------------------------------------ K7
+constexpr int kWindowVec = 4;                         // float4s per lane and run
+constexpr unsigned kWindowRun = 32 * 4 * kWindowVec;  // floats per warp run
+
+// Square windows of side S, S even (so a window is whole float4s and the
+// output of every run is 16-byte aligned).  Float e of the output is
+// float k = e % (S*S) of window m = e / (S*S): row k / S, column k % S.
+template <int S>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+gather_square_windows_kernel(const float* __restrict__ img, int Hp, int Wp,
+                             const int2* __restrict__ origins,
+                             float4* __restrict__ out, int M, int per) {
+  constexpr unsigned kArea = S * S;
+  // windows a run can touch, wherever it starts in the first one
+  constexpr unsigned kSpan = (kWindowRun + kArea - 2) / kArea + 1;
+  static_assert(S % 2 == 0 && kSpan <= 32, "a run's windows must fit a warp");
+  __shared__ float4 stage_all[kWarpsPerBlock][32 * kWindowVec];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float* stage = reinterpret_cast<float*>(stage_all[warp]);
+  const unsigned total = (unsigned)M * kArea;  // < 2^31 (the launcher)
+  const unsigned stride = gridDim.x * kWarpsPerBlock * kWindowRun;
+  for (unsigned r0 = (blockIdx.x * kWarpsPerBlock + warp) * kWindowRun; r0 < total;
+       r0 += stride) {
+    const unsigned m0 = r0 / kArea;
+    // lane i: the offset in the stack of the run's i-th window
+    int base = 0;
+    if (lane < kSpan && m0 + lane < (unsigned)M) {
+      const int m = (int)m0 + lane;
+      const int2 o = __ldg(origins + m);
+      base = (m / per) * (Hp * Wp) + clamp_start(o.x, S, Hp) * Wp +
+             clamp_start(o.y, S, Wp);
+    }
+    float v[4 * kWindowVec];
+#pragma unroll
+    for (int j = 0; j < 4 * kWindowVec; ++j) {
+      const unsigned e = r0 + lane + 32 * j;
+      const unsigned m = e / kArea, k = e - m * kArea;
+      const int a = (int)(k / S), b = (int)(k % S);
+      const int src = __shfl_sync(0xffffffffu, base, (int)(m - m0));
+      v[j] = e < total ? __ldg(img + (src + a * Wp + b)) : 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < 4 * kWindowVec; ++j) stage[lane + 32 * j] = v[j];
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < kWindowVec; ++j) {
+      const unsigned q = r0 / 4 + lane + 32 * j;
+      if (q < total / 4) out[q] = stage_all[warp][lane + 32 * j];
+    }
+    __syncwarp();  // the next run overwrites the stage
+  }
+}
+
+// The blocks of gather_square_windows_kernel<S> for M windows: as many as
+// the card holds at once, or fewer where M needs fewer.
+template <int S>
+int square_windows_grid(int M) {
+  static const int resident = [] {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, gather_square_windows_kernel<S>, kWarpsPerBlock * 32, 0);
+    return std::max(sms * per_sm, 1);
+  }();
+  const long long runs = ((long long)M * S * S + kWindowRun - 1) / kWindowRun;
+  return (int)std::min<long long>((runs + kWarpsPerBlock - 1) / kWarpsPerBlock,
+                                  resident);
+}
+
+// Any other (wh, ww): one warp per point, the sides given at run time.
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 gather_windows_kernel(const float* __restrict__ img, int Hp, int Wp,
-                      const int2* __restrict__ idx, float* __restrict__ out,
+                      const int2* __restrict__ origins, float* __restrict__ out,
                       int M, int per, int wh, int ww) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int m = blockIdx.x * kWarpsPerBlock + warp;
   if (m >= M) return;
-  const int2 id = idx[m];
-  copy_window(plane_of(img, m, per, Hp, Wp) + (size_t)id.x * Wp + id.y, Wp, wh, ww,
-              out + (size_t)m * (wh * ww), lane);
+  const int2 o = origins[m];
+  copy_window(plane_of(img, m, per, Hp, Wp) + (size_t)clamp_start(o.x, wh, Hp) * Wp +
+                  clamp_start(o.y, ww, Wp),
+              Wp, wh, ww, out + (size_t)m * (wh * ww), lane);
 }
 
 }  // namespace icgn
@@ -312,12 +417,29 @@ extern "C" int icgn_gather_patches(const float* img, int P, int Hp, int Wp,
 }
 
 extern "C" int icgn_gather_windows(const float* img, int P, int Hp, int Wp,
-                                   const int* idx, float* out, int M, int wh,
+                                   const int* origins, float* out, int M, int wh,
                                    int ww, void* stream) {
   const int per = icgn::points_per_plane(M, P);
-  if (per < 0) return (int)cudaErrorInvalidValue;
-  icgn::gather_windows_kernel<<<icgn::blocks_for(M), icgn::kWarpsPerBlock * 32,
-                                0, (cudaStream_t)stream>>>(
-      img, Hp, Wp, reinterpret_cast<const int2*>(idx), out, M, per, wh, ww);
+  if (per < 0 || wh < 1 || ww < 1 || Hp < wh || Wp < ww)
+    return (int)cudaErrorInvalidValue;
+  if (M == 0) return (int)cudaSuccess;
+  const auto* o = reinterpret_cast<const int2*>(origins);
+  // the square sides psz + 8 of every even psz up to 16, where 32-bit
+  // offsets reach every float and the output takes 16-byte stores
+  const bool fits = wh == ww && (long long)M * wh * ww < (1LL << 31) &&
+                    (long long)P * Hp * Wp < (1LL << 31) &&
+                    reinterpret_cast<size_t>(out) % 16 == 0;
+  const bool square = fits && icgn::with_side<10, 12, 14, 16, 18, 20, 22, 24>(
+      wh, [&](auto S) {
+    constexpr int kS = decltype(S)::value;
+    icgn::gather_square_windows_kernel<kS><<<icgn::square_windows_grid<kS>(M),
+                                             icgn::kWarpsPerBlock * 32, 0,
+                                             (cudaStream_t)stream>>>(
+        img, Hp, Wp, o, reinterpret_cast<float4*>(out), M, per);
+  });
+  if (!square)
+    icgn::gather_windows_kernel<<<icgn::blocks_for(M), icgn::kWarpsPerBlock * 32, 0,
+                                  (cudaStream_t)stream>>>(img, Hp, Wp, o, out, M, per,
+                                                          wh, ww);
   return (int)cudaGetLastError();
 }

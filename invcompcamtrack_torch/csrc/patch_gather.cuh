@@ -12,6 +12,12 @@ namespace icgn {
 
 constexpr float kFar = 1073741824.0f;  // 2^30, image/taps.py::_FAR
 
+// A start moved inside [0, extent - size], as image/taps.py::clamp_to_fit
+// moves it (the dynamic_slice rule).
+__device__ __forceinline__ int clamp_start(int s, int size, int extent) {
+  return min(max(s, 0), extent - size);
+}
+
 // halo[a][b] = img[r0 - 1 + a][c0 - 1 + b] for the (psz+3)^2 halo of the
 // support at (r0, c0); reads are clamped into the plane, and a clamped
 // read only ever feeds a masked-out difference.
@@ -109,8 +115,7 @@ __device__ __forceinline__ int support_start(float v, int psz, int pad,
                                              int extent) {
   float f = ceilf(__fadd_rn(v, 1e-5f));
   f = (f != f) ? 0.0f : fminf(fmaxf(f, -kFar), kFar);
-  const int s = (int)f - psz / 2 - 1 + pad;
-  return min(max(s, 0), extent - (psz + 1));
+  return clamp_start((int)f - psz / 2 - 1 + pad, psz + 1, extent);
 }
 
 // The 4 weights of a centre (x, y), as bilinear_base forms them:
@@ -130,7 +135,7 @@ __device__ __forceinline__ int4 dual_index(float2 c, int2 o, int Hp, int Wp,
                                            int pad) {
   return make_int4(support_start(c.y, kPsz, pad, Hp),
                    support_start(c.x, kPsz, pad, Wp),
-                   min(max(o.x, 0), Hp - kWin), min(max(o.y, 0), Wp - kWin));
+                   clamp_start(o.x, kWin, Hp), clamp_start(o.y, kWin, Wp));
 }
 
 }  // namespace icgn

@@ -24,7 +24,8 @@ from pathlib import Path
 import torch
 
 # the patch and window sides K1, K2, K3 and K9 are compiled for
-# (csrc/common.cuh: kPsz, kWin); K4-K7 take theirs at run time
+# (csrc/common.cuh: kPsz, kWin); K4-K7 take theirs at run time and
+# dispatch the sides their callers use to kernels compiled for each
 PSZ = 8
 WIN = 16
 
@@ -54,7 +55,7 @@ _SIGNATURES = {
     "icgn_gather_patches": [_P, _I, _I, _I, _P, _P, _I, _I, _I, _P],
     # img, P, Hp, Wp, centers, p_img, p_dx, p_dy, M, psz, pad, stream
     "icgn_gather_patches_grad": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
-    # img, P, Hp, Wp, idx, out, M, wh, ww, stream
+    # img, P, Hp, Wp, origins (unclamped), out, M, wh, ww, stream
     "icgn_gather_windows": [_P, _I, _I, _I, _P, _P, _I, _I, _I, _P],
     # img_b, img_r, img_f, Hp, Wp, uv_b, uv_r, uv_f, out, M, psz, pad, stream
     "icgn_ncc3_scores": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],

@@ -18,10 +18,10 @@ versions take their indices and weights from ``image/taps.py``
 (``ops/patch_prefetch.py``): the kernel computes each point's support
 start, weights and clamped window origin with that code's operations in
 its order, so a call without the patch mean is one device op.  K7 takes
-its clamped origins.  Kernels and plain versions move a support or
-window that would leave the plane back inside it (the ``dynamic_slice``
-rule of the JAX package's XLA twins, which the TPU kernels do not follow
-at the frustum border).  The patch mean, when asked for, is removed by
+the window origins as they are and is one device op too.  Kernels and
+plain versions move a support or window that would leave the plane back
+inside it (the ``dynamic_slice`` rule of the JAX package's XLA twins,
+which the TPU kernels do not follow at the frustum border).  The patch mean, when asked for, is removed by
 the wrapper with the plain version's own ``torch.mean``, as the JAX
 package removes it outside its kernels.
 
@@ -39,7 +39,6 @@ import torch
 
 from invcompcamtrack_torch.image.taps import (
     bilinear_base,
-    clamp_to_fit,
     combine,
     patch_mean_removed,
     slice_windows,
@@ -251,7 +250,9 @@ def gather_windows(img: torch.Tensor, origins: torch.Tensor, wh: int,
                    ww: int) -> torch.Tensor:
     """K7.  img (Hp, Wp) f32 padded with origins (..., 2) int32 (row,
     col), or a stack (P, Hp, Wp) with origins (P, ..., 2) -> (..., wh,
-    ww) copies."""
+    ww) copies.  The kernel moves each window inside its plane; the
+    square sides 10, 12, ..., 24 have kernels of their own, any other
+    side takes one with the sides given at run time."""
     name = "gather_windows"
     if not on_card(name, img):
         return gather_windows_plain(img, origins, wh, ww)
@@ -260,15 +261,13 @@ def gather_windows(img: torch.Tensor, origins: torch.Tensor, wh: int,
     P, Hp, Wp = stack_shape(name, img, origins)
     require(name, 1 <= wh <= Hp and 1 <= ww <= Wp,
             f"plane {(Hp, Wp)} is smaller than the {wh}x{ww} window")
-    flat = origins.reshape(-1, 2)
-    idx = torch.stack([clamp_to_fit(flat[:, 0], wh, Hp),
-                       clamp_to_fit(flat[:, 1], ww, Wp)], dim=1).contiguous()
-    M = idx.shape[0]
+    flat = origins.reshape(-1, 2).contiguous()
+    M = flat.shape[0]
     out = torch.empty((M, wh, ww), dtype=torch.float32, device=img.device)
     if M > 0:
         lib = _build.load()
         code = lib.icgn_gather_windows(
-            img.data_ptr(), P, Hp, Wp, idx.data_ptr(), out.data_ptr(), M, wh, ww,
+            img.data_ptr(), P, Hp, Wp, flat.data_ptr(), out.data_ptr(), M, wh, ww,
             _build.stream_ptr(img.device))
         _build.check(lib, code, name)
         launches[name] += 1

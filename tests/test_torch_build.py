@@ -12,7 +12,9 @@ K4, K5, K6, K9) run their card path on CPU tensors against a stand-in
 library that records the call: what they pass, and that they prepare no
 indices or weights (on the card such a call is one device op); K1, K5,
 K6, K7 and K9 also on a stack of P planes, the multi-stream engine's
-call, which passes P and the stack's pointer.
+call, which passes P and the stack's pointer.  K7 passes the window
+origins as they are (the kernel clamps them), and the clamping rule it
+repeats is held to the plain path's at origins beyond every border.
 """
 
 import ctypes
@@ -22,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from invcompcamtrack_torch.image import taps
 from invcompcamtrack_torch.image.pyramid import build_pyramid
 from invcompcamtrack_torch.ops import _build, ncc3, patch_gather, patch_prefetch
 
@@ -79,6 +82,27 @@ def _no_prep(*_args, **_kw):
     raise AssertionError("the wrapper prepared indices or weights in torch")
 
 
+def _forbid_prep(monkeypatch):
+    """Make the plain versions' index helpers raise: the support starts
+    and weights (``bilinear_base``) and the clamping of supports and
+    windows into the plane (``image/taps.py::clamp_to_fit``)."""
+    monkeypatch.setattr(patch_gather, "bilinear_base", _no_prep)
+    monkeypatch.setattr(taps, "clamp_to_fit", _no_prep)
+
+
+def _host_ops(fn):
+    """fn's result and the names of the torch ops it ran."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        out = fn()
+    return out, {e.name for e in prof.events()}
+
+
+# what a wrapper may run besides its launch: allocation and views
+_ALLOC = {"aten::empty", "aten::empty_like", "aten::empty_strided"}
+_VIEWS = {"aten::view", "aten::reshape", "aten::_reshape_alias", "aten::alias",
+          "aten::as_strided"}
+
+
 # kernel -> (module, launch count key, C entry point)
 _CENTRE_KERNELS = {
     "gather_patches": (patch_gather, "gather_patches", "icgn_gather_patches"),
@@ -112,8 +136,7 @@ def _drive_card_path(monkeypatch, kernel, stacked):
     mod, key, entry_name = _CENTRE_KERNELS[kernel]
     monkeypatch.setattr(patch_gather, "on_card", lambda name, t: True)
     monkeypatch.setattr(ncc3, "on_card", lambda name, t: True)
-    for helper in ("bilinear_base", "clamp_to_fit"):
-        monkeypatch.setattr(patch_gather, helper, _no_prep)
+    _forbid_prep(monkeypatch)
     monkeypatch.setattr(_build, "load", lambda: lib)
     monkeypatch.setattr(_build, "stream_ptr", lambda device: 1234)
     counts = {m: dict.fromkeys(m.launches, 0) for m in (patch_gather, patch_prefetch, ncc3)}
@@ -144,16 +167,13 @@ def _drive_card_path(monkeypatch, kernel, stacked):
 
     def ops_of(patch_norm):
         kw = {} if kernel == "ncc3_scores" else {"patch_norm": patch_norm}
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-            out = getattr(mod, kernel)(*args, **kw)
-        return out, {e.name for e in prof.events()}
+        return _host_ops(lambda: getattr(mod, kernel)(*args, **kw))
 
     out, ran = ops_of(False)
     # what ran besides the call: allocation and views, no arithmetic
     assert "aten::empty" in ran
-    views = {"aten::view", "aten::reshape", "aten::_reshape_alias", "aten::alias",
-             "aten::as_strided"} | ({"aten::select"} if kernel == "ncc3_scores" else set())
-    assert ran <= {"aten::empty", "aten::empty_like", "aten::empty_strided"} | views, ran
+    views = _VIEWS | ({"aten::select"} if kernel == "ncc3_scores" else set())
+    assert ran <= _ALLOC | views, ran
     (entry, args_c), = lib.calls
     assert entry == entry_name
     assert len(args_c) == len(_build._SIGNATURES[entry])
@@ -195,26 +215,64 @@ def _drive_card_path(monkeypatch, kernel, stacked):
 
 @pytest.mark.parametrize("stacked", [False, True], ids=["plane", "stack"])
 def test_k7_wrapper_passes_the_stack_and_clamped_origins(monkeypatch, stacked):
-    """K7 on a plane and on a stack of P = 2 planes: one entry call with P,
-    Hp, Wp and the origins moved inside the plane (the wrapper's 4 ops)."""
+    """K7 on a plane and on a stack of P = 2 planes, with origins beyond
+    the plane: one entry call with P, Hp, Wp and the origins' own pointer,
+    unclamped (the kernel clamps them), and nothing computed or copied in
+    torch before it, so that a call is one device op on the card."""
     lib = _Recorder()
     monkeypatch.setattr(patch_gather, "on_card", lambda name, t: True)
     monkeypatch.setattr(_build, "load", lambda: lib)
     monkeypatch.setattr(_build, "stream_ptr", lambda device: 1234)
     monkeypatch.setattr(patch_gather, "launches", dict.fromkeys(patch_gather.launches, 0))
+    _forbid_prep(monkeypatch)
     rng = np.random.default_rng(17)
     P = 2 if stacked else 1
     planes = torch.tensor(rng.uniform(0, 255, (P, 30, 44)).astype(np.float32))
     img = planes if stacked else planes[0]
     origins = torch.tensor(rng.integers(-20, 50, (P, 5, 2)).astype(np.int32))
-    out = patch_gather.gather_windows(img, origins, 12, 12)
+    origins[:, :2] = torch.tensor([[-7, 40], [25, -3]], dtype=torch.int32)
+    out, ran = _host_ops(lambda: patch_gather.gather_windows(img, origins, 12, 12))
+    assert "aten::empty" in ran and ran <= _ALLOC | _VIEWS, ran
     assert out.shape == (P, 5, 12, 12)
     (entry, args_c), = lib.calls
     assert entry == "icgn_gather_windows"
     assert len(args_c) == len(_build._SIGNATURES[entry])
-    assert args_c[:4] == (img.data_ptr(), P, 30, 44)
-    assert args_c[5:] == (out.data_ptr(), P * 5, 12, 12, 1234)
+    for a, ctype in zip(args_c, _build._SIGNATURES[entry]):
+        ctype(a)                                    # each converts as declared
+    assert args_c == (img.data_ptr(), P, 30, 44, origins.data_ptr(), out.data_ptr(),
+                      P * 5, 12, 12, 1234)
     assert patch_gather.launches["gather_windows"] == 1
     # a stack of 3 planes with the origins of P groups
     with pytest.raises(ValueError, match="takes points"):
         patch_gather.gather_windows(torch.zeros(3, 30, 44), origins, 12, 12)
+
+
+# origins (row, col) of a 12 x 10 window on a 30 x 44 plane beyond each
+# border and corner, and just inside them
+_BEYOND = {
+    "above": [(-1, 7), (-25, 20), (0, 3)],
+    "below": [(19, 7), (30, 20), (400, 0)],
+    "left": [(5, -1), (9, -44), (17, 0)],
+    "right": [(5, 35), (9, 44), (0, 10**6)],
+    "corners": [(-3, -3), (-9, 60), (50, -2), (31, 45)],
+}
+
+
+@pytest.mark.parametrize("side", list(_BEYOND))
+def test_k7_clamps_origins_beyond_the_plane_as_the_plain_path(side):
+    """The rule the kernel applies to each origin, min(max(o, 0), extent -
+    size), gives the windows of the plain path (``clamp_to_fit`` in
+    ``image/taps.py``) for origins beyond every border: on a plane and on
+    a stack of 2 planes, through the wrapper on CPU tensors."""
+    rng = np.random.default_rng(18)
+    planes = rng.uniform(0, 255, (2, 30, 44)).astype(np.float32)
+    o = np.array(_BEYOND[side] * 2, np.int32).reshape(2, -1, 2)
+    wh, ww = 12, 10
+    r = np.clip(o[..., 0], 0, 30 - wh)
+    c = np.clip(o[..., 1], 0, 44 - ww)
+    want = np.stack([np.stack([planes[p, r[p, i]:r[p, i] + wh, c[p, i]:c[p, i] + ww]
+                               for i in range(o.shape[1])]) for p in range(2)])
+    got = patch_gather.gather_windows(torch.tensor(planes), torch.tensor(o), wh, ww)
+    np.testing.assert_array_equal(got.numpy(), want)
+    one = patch_gather.gather_windows(torch.tensor(planes[1]), torch.tensor(o[1]), wh, ww)
+    np.testing.assert_array_equal(one.numpy(), want[1])

@@ -18,11 +18,15 @@ Tolerances (kernel vs plain version, same inputs, both on the card):
   4e-5 (about 1 ulp of intensities below 256) with it.
 - K5, K6: the plain version's float operations in its order, the
   support starts and weights included (the kernels take the centres);
-  K7: a copy.  Bit-exact, at psz 8, 4, 6 and 16, at border, far-outside,
+  K7: a copy, its origins clamped in the kernel.  Bit-exact, at psz 8, 4,
+  6 and 16, at border, far-outside,
   integer, near-integer, negative and NaN centers (NaN where the plain
   version gives NaN); K5 also at psz 18 and 32 (the descriptors' and the
   flow benchmark's sides, compiled as the others) and 20 (any other side:
-  one warp per point); K6 refuses them: it has no caller beyond 16.
+  one warp per point); K6 refuses them: it has no caller beyond 16.  K7
+  also at every square side it is compiled for (10-24), at sides given
+  at run time, at M = 0, 1 and 333, on a stack of 4 planes and at
+  origins beyond every border, one launch and no torch op per call.
 - K8: the plain version's float operations in its order, through the
   non-contracting _rn intrinsics: bit-exact for every flow (smooth, a
   step, leaving the image, integer, infinite, NaN).
@@ -56,6 +60,7 @@ from invcompcamtrack_torch import ICGNParams, synthetic
 from invcompcamtrack_torch.cli import track_pair
 from invcompcamtrack_torch.core import lie
 from invcompcamtrack_torch.core.camera import CameraPyramid
+from invcompcamtrack_torch.image import taps
 from invcompcamtrack_torch.image.pyramid import PyramidLevel, build_pyramid
 from invcompcamtrack_torch.match import dense_flow, descriptors
 from invcompcamtrack_torch.ops import icgn_iter, ncc3, patch_gather, patch_prefetch, warp
@@ -121,8 +126,8 @@ def test_k1_kernel_matches_plain(pair, cuda_device, patch_norm, monkeypatch):
     n0 = patch_gather.launches["gather_ref_grad_windows"]
     with monkeypatch.context() as mp:
         # K1 takes the centres and origins: no index or weight is made in torch
-        for helper in ("bilinear_base", "clamp_to_fit"):
-            mp.setattr(patch_gather, helper, None)
+        mp.setattr(patch_gather, "bilinear_base", None)
+        mp.setattr(taps, "clamp_to_fit", None)
         got = patch_gather.gather_ref_grad_windows(lvl, qimg, centers, origins, PSZ, PAD,
                                                    WIN, patch_norm=patch_norm)
     torch.cuda.synchronize()
@@ -234,8 +239,8 @@ def test_k5_k6_k7_kernels_match_plain(pair, cuda_device, psz, monkeypatch):
     with monkeypatch.context() as mp:
         # K5 and K6 take the centres: no index or weight is made in torch,
         # and a call without the patch mean is its launch alone
-        for helper in ("bilinear_base", "clamp_to_fit"):
-            mp.setattr(patch_gather, helper, None)
+        mp.setattr(patch_gather, "bilinear_base", None)
+        mp.setattr(taps, "clamp_to_fit", None)
         for pn in (False, True):
             n5 = patch_gather.launches["gather_patches"]
             got = patch_gather.gather_patches(lvl.img, c56, psz, psz, pn)
@@ -265,6 +270,47 @@ def test_k5_k6_k7_kernels_match_plain(pair, cuda_device, psz, monkeypatch):
         patch_gather.gather_patches_grad(lvl.img.double(), lvl.dx, lvl.dy, centers, psz, psz)
     with pytest.raises(ValueError, match="int32"):
         patch_gather.gather_windows(lvl.img, origins.long(), win, win)
+
+
+# K7's square sides compiled in (psz + 8 for every even psz up to 16),
+# sides given at run time, and a square side of each kind outside them
+K7_SIDES = [(q, q) for q in range(10, 25, 2)] + [(3, 16), (16, 5), (8, 8), (26, 26)]
+
+
+@pytest.mark.parametrize("wh,ww", K7_SIDES)
+def test_k7_kernel_equals_plain_at_every_side(pair, cuda_device, wh, ww, monkeypatch):
+    """K7 bit for bit with its plain version at M = 0, 1 and 333 (not a
+    multiple of the windows a warp copies at once) on one plane and at
+    4 x 83 on a stack of 4 planes, with origins beyond every border and
+    corner: one launch per call, and no torch op besides the output's
+    allocation (so one device op)."""
+    _, _, img_ref, img_new, _ = pair
+    dev = cuda_device
+    imgs = [t32(im, dev) for im in (img_ref, img_new, img_ref[::-1].copy(),
+                                    img_new[:, ::-1].copy())]
+    stack = build_pyramid(torch.stack(imgs), 1, 8)[0].img
+    Hp, Wp = stack.shape[-2:]
+    rng = np.random.default_rng(19)
+    far = [[-1, 5], [-60, -60], [Hp, 3], [Hp + 60, Wp + 60], [7, -1], [9, Wp],
+           [-5, Wp + 9], [Hp - wh + 1, Wp - ww + 1], [Hp - wh, Wp - ww], [0, 0]]
+    o = np.r_[far, np.c_[rng.integers(-40, Hp + 40, 322), rng.integers(-40, Wp + 40, 322)]]
+    origins = torch.tensor(o.astype(np.int32), device=dev)
+    cases = [(stack[0], origins[:m]) for m in (0, 1, 333)]
+    cases.append((stack, origins[:332].reshape(4, 83, 2)))
+    for img, org in cases:
+        want = patch_gather.gather_windows_plain(img, org, wh, ww)
+        n0 = patch_gather.launches["gather_windows"]
+        with monkeypatch.context() as mp, torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            mp.setattr(taps, "clamp_to_fit", None)    # the kernel clamps
+            got = patch_gather.gather_windows(img, org, wh, ww)
+        ran = {e.name for e in prof.events() if e.name.startswith("aten::")}
+        assert ran <= {"aten::empty", "aten::view", "aten::reshape", "aten::_reshape_alias",
+                       "aten::alias", "aten::as_strided"}, ran
+        assert patch_gather.launches["gather_windows"] == n0 + (org.numel() > 0)
+        assert got.shape == org.shape[:-1] + (wh, ww)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("psz", [8, 4, 16])
