@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``invcompcamtrack_torch/csrc``, holds
 each against its plain PyTorch version at the main paths' shapes, and
-drives nine paths, each with the launch counts set to 0 just before it
+drives ten paths, each with the launch counts set to 0 just before it
 and read just after:
 
 1. the batched IC-GN tracker ``track_pose_batch`` at the shape of
@@ -57,7 +57,21 @@ and read just after:
    ``examples/run_stereo_track_torch.py`` (K6, K7), the NVM replay through
    the pair tracker's CLI (K1 x 5, K2 x 50 per frame pair), the VGG
    feature descriptors on a stack of 32 maps (K5 x 1, equal to 32
-   one-plane calls), and a checkpoint round trip of a small VO engine.
+   one-plane calls), and a checkpoint round trip of a small VO engine;
+10. the multi-device paths, each world of ranks spawned on the one card
+   (its ranks count their own launches): 10a the engine of path 6 with
+   ``ba_mode="full"`` on frames 0-17 with its window BA landmark-sharded
+   (``VOConfig.ba_mesh``) over 2 gloo ranks, the ranks bit-equal and held
+   to the one-device engine (per frame K1 x 5, K2 x 50, per keyframe
+   K6 x 20, K7 x 20 in every rank), and over 1 NCCL rank, equal to it;
+   10b ``temporal_ba_solve`` on ``examples/run_temporal_scale_torch.py``'s
+   window (K=32, L=2048) on 1 and 2 gloo ranks against ``ba_solve(cg)``,
+   and the engine's temporal route (``ba_temporal_mesh``, window 6) on 2
+   gloo ranks and 1 NCCL rank against the one-device engine; 10c
+   the VO pipeline, path 7's 4 streams through the 4-stage ring of 4 gloo
+   ranks (the stages' kernels launched by their ranks), each stream
+   against its sequential engine; 10d ``checkpointed_loop`` on the card
+   killed mid-run and resumed, bit-equal to an uninterrupted run.
 
 It checks that each path went through its kernels and solved its
 problem, compares the card with the port's CPU run, then times the paths
@@ -224,6 +238,71 @@ ENGINE_STREAMS = 4
 STREAM_ATE_LIMIT = 0.08
 STREAM_CMP_FRAMES = 8
 OPS_SHARE = 0.05
+# Path 10, the multi-device paths on the one card (phase 10).  10a: path
+# 6's workload, frames 0-MD_FRAMES-1 (bootstrap on 0-1, then 8 keyframes:
+# a cut of depth, not of width), the window BA landmark-sharded over
+# MD_RANKS gloo ranks sharing the card (NCCL puts one rank on a card) and
+# over 1 NCCL rank, held to the one-device engine on the same frames by
+# path 6's card-vs-CPU limits (ENGINE_MEDIAN_TOL, ENGINE_WORST_TOL) and
+# its ATE limit; at 1 NCCL rank it must equal the one-device engine.
+# The engines of 10a and 10b run with ba_mode MD_BA_MODE ("full"), so
+# that the joint solve, the one that all-reduces the pose blocks, writes
+# every keyframe's poses (path 6's hybrid default keeps its polish gate
+# shut on this lateral path, and then only the per-landmark structure
+# pass reaches the trajectory).  10a's limits follow path 6's rule in
+# that mode: the median frame within MD_SPREAD_FACTOR x the median gap
+# of the one-device engine against itself with the seeds moved by
+# ENGINE_SEED_SHIFT, measured in the run (and never below
+# ENGINE_MEDIAN_TOL), the worst within ENGINE_WORST_TOL.  The full joint
+# solve on every keyframe takes LM accept/reject decisions that a last
+# bit can flip, so its spread is wider than the hybrid engine's.
+# 10b: examples/run_temporal_scale_torch.py's window (K=32, L=2048),
+# temporal_ba_solve on 1 and 2 gloo ranks against ba_solve(cg) on the
+# card, timed over TEMPORAL_REPS solves; and the engine's temporal route
+# on 10a's frames with window MD_TEMPORAL_WINDOW (path 6's 5 does not
+# divide by 2) over 2 gloo ranks and 1 NCCL rank, against the one-device
+# engine with that window: ranks bit-equal, ATE within path 6's limit,
+# each frame within TEMPORAL_ROUTE_GAP.  That limit is not path 6's: the
+# temporal route solves another problem (a linearised odometry chain in
+# coefficient space, distributed PCG) than the one-device joint solve
+# (group-space odometry factors, a dense Schur solve), and the JAX
+# package's temporal engine parts from its one-device engine by 0.0471 in
+# float64 and 0.0071 in float32 on tests/test_torch_ba_distributed.py's
+# sequence; the limit is tests/test_torch_ba_distributed.py's
+# TEMPORAL_ENGINE_GAP, 1.5 x the float64 figure.  10c: path 7's streams, PIPE_WINDOWS keyframe
+# steps each through the 4-stage VO pipeline on 4 gloo ranks, against
+# each stream's sequential engine.  10d: checkpointed_loop killed mid-run
+# on the card and resumed, RUNTIME_STEPS steps.  Each world is joined
+# within MD_TIMEOUT_S; each collective waits at most
+# MD_COLLECTIVE_TIMEOUT_S.
+# 10b's limits: the JAX package's temporal solve (1, 2 and 4 devices)
+# parts from its ba_solve(cg) on this window by 0.0059 in float32 and
+# 0.0074 in float64, and ends 0.0077 and 0.0100 from the true poses (its
+# ba_solve 0.0034); its float32 temporal solve parts from its float64 one
+# by 0.0055, the window's float32 sensitivity (landmarks seen under small
+# angles by a forward-moving camera), which any change of summation order
+# can take: so the port's 1 and 2 ranks may part by up to that much (the
+# JAX package's 1 and 2 devices part by only 6e-6: XLA sums the 32
+# keyframes as two halves, as two shards do).  Each limit is the larger
+# JAX figure plus twice the sensitivity, rounded up; 1 vs 2 ranks within
+# twice the sensitivity
+# (tests/test_torch_ba_distributed.py::test_temporal_scale_gap_of_the_jax_package
+# re-measures them).
+TEMPORAL_VS_REPLICATED = 0.019
+TEMPORAL_POSE_ERR = 0.021
+TEMPORAL_RANKS_GAP = 0.011
+MD_FRAMES = 18
+MD_RANKS = 2
+MD_BA_MODE = "full"
+MD_TEMPORAL_WINDOW = 6
+TEMPORAL_ROUTE_GAP = 0.07
+MD_SPREAD_FACTOR = 10.0
+PIPE_WINDOWS = 4
+TEMPORAL_REPS = 3
+RUNTIME_STEPS = 30
+MD_TIMEOUT_S = 600
+MD_COLLECTIVE_TIMEOUT_S = 300
+MD_DIR = Path(__file__).resolve().parent / "build" / "phase10"
 # K7's timing: launches per pass (two warm passes); the engine's points
 # per stream (VOConfig.corners_per_kf)
 K7_REPS = 24
@@ -525,10 +604,11 @@ def held_to_repro(name, gaps):
     return apart
 
 
-def engine_workload(torch):
+def engine_workload(torch, n_render=None):
     """bench.py::bench_engine's scene, pose path and seeds (from its
     generator, seeded with 1), with two more frames along the path (from a
-    generator of their own) for the single-step timings."""
+    generator of their own) for the single-step timings.  With
+    ``n_render`` only the first n_render frames are rendered."""
     from concurrent.futures import ThreadPoolExecutor
 
     from invcompcamtrack_torch import synthetic
@@ -550,7 +630,7 @@ def engine_workload(torch):
     Gs = [lie.se3_exp(torch.tensor(p, dtype=torch.float64)).numpy() for p in poses]
     with ThreadPoolExecutor(8) as ex:
         frames = np.stack(list(ex.map(
-            lambda G: synthetic.render(scene, G).astype(np.float32), Gs)))
+            lambda G: synthetic.render(scene, G).astype(np.float32), Gs[:n_render])))
     centers = np.stack([-G[:, :3].T @ G[:, 3] for G in Gs])
     return scene, poses, frames, seeds, centers
 
@@ -748,13 +828,14 @@ def engine_phase(torch, dev, card, all_counts, read_counts, expect_counts):
         "render_s": render_s, "seconds": time.perf_counter() - t_phase}
 
 
-def streams_workload(torch):
+def streams_workload(torch, n_render=None):
     """bench.py::bench_engine_streams' workload: bench_engine's scene (its
     generator seeded with 1) and ENGINE_STREAMS pose paths, stream s from
     a generator seeded with 10 + s, which then draws the stream's 400
     seeds; two more frames along each path (drawn after the seeds) for the
     single-step timings.  -> scene, poses (S, 68, 6), frames (S, 68, H, W),
-    seeds (S, 400, 3), centres (S, 68, 3)."""
+    seeds (S, 400, 3), centres (S, 68, 3).  With ``n_render`` only each
+    stream's first n_render frames are rendered."""
     from concurrent.futures import ThreadPoolExecutor
 
     from invcompcamtrack_torch import synthetic
@@ -776,13 +857,15 @@ def streams_workload(torch):
                                          rr.normal(size=3) * 0.001])
         poses.append(np.stack(path))
     poses = np.stack(poses)
+    S, F = poses.shape[:2]
+    n_render = F if n_render is None else n_render
     Gs = [lie.se3_exp(torch.tensor(p, dtype=torch.float64)).numpy() for p in poses.reshape(-1, 6)]
     with ThreadPoolExecutor(8) as ex:
         frames = np.stack(list(ex.map(
-            lambda G: synthetic.render(scene, G).astype(np.float32), Gs)))
+            lambda G: synthetic.render(scene, G).astype(np.float32),
+            [G for i, G in enumerate(Gs) if i % F < n_render])))
     centers = np.stack([-G[:, :3].T @ G[:, 3] for G in Gs])
-    S, F = poses.shape[:2]
-    return (scene, poses, frames.reshape((S, F) + frames.shape[1:]), np.stack(seeds),
+    return (scene, poses, frames.reshape((S, n_render) + frames.shape[1:]), np.stack(seeds),
             centers.reshape(S, F, 3))
 
 
@@ -1051,6 +1134,469 @@ def small_paths_phase(torch, dev, card, all_counts, read_counts, expect_counts):
     out["checkpoint_arrays"] = len(saved)
     return launches, out
 
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the multi-device paths on the one card.  Each world is spawned
+# (the parent has CUDA up); its ranks are the functions below, which this
+# module holds so that a spawned rank imports nothing but this script and
+# the port.  A rank returns its results, launch counts included, through
+# the port's spawn_world (a pickle under MD_DIR); the parent joins every
+# rank with a timeout, kills what is left and fails.
+
+
+def _md_init(rank, n, backend, init_method):
+    import torch
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import invcompcamtrack_torch  # noqa: F401  (sets TF32 off)
+    from invcompcamtrack_torch.parallel.runtime import initialize_distributed
+
+    torch.set_num_threads(2)
+    torch.cuda.set_device(0)
+    torch.zeros(1, device="cuda")           # CUDA up before the mesh and the group
+    ok = initialize_distributed(coordinator=init_method, num_processes=n,
+                                process_id=rank, backend=backend, retries=1,
+                                timeout_s=MD_COLLECTIVE_TIMEOUT_S)
+    assert ok
+    return torch
+
+
+def _md_counts():
+    """The nine kernels' launch counts in this process (main's
+    read_counts)."""
+    from invcompcamtrack_torch.ops import icgn_iter, ncc3, patch_gather, patch_prefetch, warp
+
+    return {"K1": patch_gather.launches["gather_ref_grad_windows"],
+            "K2": icgn_iter.launches["project"], "K3": icgn_iter.launches["pdiff"],
+            "K4": ncc3.launches["ncc3_scores"],
+            "K5": patch_gather.launches["gather_patches"],
+            "K6": patch_gather.launches["gather_patches_grad"],
+            "K7": patch_gather.launches["gather_windows"],
+            "K8": warp.launches["warp_image"],
+            "K9": patch_prefetch.launches["gather_ref_grad_windows_prefetch"]}
+
+
+def _md_reset():
+    from invcompcamtrack_torch.ops import icgn_iter, ncc3, patch_gather, patch_prefetch, warp
+
+    reset(patch_gather.launches, icgn_iter.launches, ncc3.launches, warp.launches,
+          patch_prefetch.launches)
+
+
+def _md_engine_cfg(**kw):
+    """Path 6's engine configuration, with ``kw`` replacing its fields."""
+    from invcompcamtrack_torch import ICGNParams
+    from invcompcamtrack_torch.vo import engine
+
+    tracker = ICGNParams(lv_f=4, lv_l=0, psz=8, maxiter=10)
+    base = dict(max_landmarks=512, window=5, keyframe_stride=2, corners_per_kf=512,
+                min_parallax_px=1.0)
+    return engine.VOConfig(tracker=tracker, **{**base, **kw})
+
+
+def _md_run_engine(torch, work, cfg):
+    """Path 6's engine on phase 10's frames: bootstrap on frames 0-1 from
+    the true poses, then run_frames over the rest, timed, with the launch
+    counts set to 0 just before.  -> poses, landmarks, valid, trajectory,
+    launches, seconds."""
+    from invcompcamtrack_torch.core.camera import CameraPyramid
+    from invcompcamtrack_torch.vo import engine
+
+    w = np.load(work)
+    fc, cc, wh = tuple(w["fc"]), tuple(w["cc"]), tuple(int(v) for v in w["wh"])
+    tr = cfg.tracker
+    cam = CameraPyramid.create(fc, cc, wh, tr.num_levels, tr.psz)
+    vo = engine.VisualOdometry(cam, fc, cc, cfg)
+    vo.bootstrap(w["frames"][0], w["frames"][1], w["poses"][0], w["poses"][1], w["seeds"])
+    chunk = torch.from_numpy(w["frames"][2:]).cuda()
+    torch.cuda.synchronize()
+    _md_reset()
+    t0 = time.perf_counter()
+    poses = vo.run_frames(chunk)        # pulls the poses to the host: synced
+    seconds = time.perf_counter() - t0
+    return {"poses": poses, "landmarks": vo.landmarks.cpu().numpy(),
+            "valid": vo.lm_valid.cpu().numpy(), "trajectory": np.stack(vo.trajectory),
+            "launches": _md_counts(), "seconds": seconds}
+
+
+def _md_job_engine(torch, work, mode, axis, window):
+    """The engine with ba_mode MD_BA_MODE, its window BA sharded over the
+    world: landmark-sharded (ba_mesh) or keyframe-sharded (the temporal
+    route, ba_temporal_mesh)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    import torch.distributed as dist
+
+    mesh = init_device_mesh("cuda", (dist.get_world_size(),), mesh_dim_names=(axis,))
+    kw = ({"ba_mesh": mesh, "ba_mesh_axis": axis} if mode == "landmark"
+          else {"ba_temporal_mesh": mesh, "ba_temporal_axis": axis})
+    return _md_run_engine(torch, work, _md_engine_cfg(ba_mode=MD_BA_MODE, window=window, **kw))
+
+
+def _md_job_temporal(torch, reps):
+    """examples/run_temporal_scale_torch.py's window, keyframe-sharded over
+    the world, timed per solve."""
+    from torch.distributed.device_mesh import init_device_mesh
+    import torch.distributed as dist
+
+    ex = _temporal_example()
+    mesh = init_device_mesh("cuda", (dist.get_world_size(),), mesh_dim_names=("seq",))
+    _, pg, _, tprob = ex.build_problem("cuda")
+    out = ex.solve_temporal(tprob, mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = ex.solve_temporal(tprob, mesh)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    poses, lms, (err, err0) = out
+    return {"poses": poses.cpu().numpy(), "landmarks": lms.cpu().numpy(), "err": float(err),
+            "err0": float(err0), "ms": ms,
+            "max_pose_err": float((poses - pg)[2:].abs().max())}
+
+
+def _md_job_pipeline(torch, work):
+    """Path 7's streams through the 4-stage ring, PIPE_WINDOWS keyframe
+    steps each, timed, with the launch counts set to 0 just before."""
+    from torch.distributed.device_mesh import init_device_mesh
+    import torch.distributed as dist
+
+    from invcompcamtrack_torch.core.camera import CameraPyramid
+    from invcompcamtrack_torch.parallel.vo_pipeline import (make_vo_pipeline,
+                                                            pp_ring_bytes_per_step,
+                                                            vo_pipeline_run)
+    from invcompcamtrack_torch.vo import engine
+
+    w = np.load(work)
+    fc, cc, wh = tuple(w["fc"]), tuple(w["cc"]), tuple(int(v) for v in w["wh"])
+    cfg = dataclasses.replace(_md_engine_cfg(), keyframe_stride=1)
+    tr = cfg.tracker
+    cam = CameraPyramid.create(fc, cc, wh, tr.num_levels, tr.psz)
+    states = []
+    for s in range(ENGINE_STREAMS):
+        vo = engine.VisualOdometry(cam, fc, cc, cfg)
+        vo.bootstrap(w["frames"][s, 0], w["frames"][s, 1], w["poses"][s, 0], w["poses"][s, 1],
+                     w["seeds"][s])
+        states.append(vo.state)
+    spec = make_vo_pipeline(cam, cfg, wh)
+    mesh = init_device_mesh("cuda", (dist.get_world_size(),), mesh_dim_names=("stage",))
+    frames = torch.from_numpy(w["frames"][:, 2:2 + PIPE_WINDOWS]).cuda()
+    torch.cuda.synchronize()
+    dist.barrier()
+    _md_reset()
+    t0 = time.perf_counter()
+    poses, finals = vo_pipeline_run(spec, states, frames, mesh)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return {"poses": poses.cpu().numpy(),
+            "landmarks": [f.landmarks.cpu().numpy() for f in finals],
+            "valid": [f.lm_valid.cpu().numpy() for f in finals],
+            "launches": _md_counts(), "seconds": seconds,
+            "carrier_floats": spec.carrier_size, "ring_bytes_per_step": pp_ring_bytes_per_step(spec)}
+
+
+def _temporal_example():
+    path = Path(__file__).resolve().parent / "examples" / "run_temporal_scale_torch.py"
+    spec = importlib.util.spec_from_file_location("run_temporal_scale_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+MD_JOBS = {"engine": _md_job_engine, "temporal": _md_job_temporal,
+           "pipeline": _md_job_pipeline}
+
+
+def _md_rank(rank, n, init_method, backend, jobs):
+    torch = _md_init(rank, n, backend, init_method)
+    import torch.distributed as dist
+
+    results = [MD_JOBS[name](torch, **kw) for name, kw in jobs]
+    dist.destroy_process_group()
+    return results
+
+
+def md_world(n, backend, jobs, name):
+    """Spawn an n-rank world on the card (the port's ``spawn_world``:
+    ranks joined by MD_TIMEOUT_S, killed past it, a rank's traceback
+    raised here); every rank runs ``jobs`` (a list of (job name,
+    kwargs)); returns each rank's results."""
+    from invcompcamtrack_torch.parallel.runtime import spawn_world
+
+    t0 = time.perf_counter()
+    results = spawn_world(_md_rank, n, MD_DIR / name, MD_TIMEOUT_S, args=(backend, jobs))
+    print(f"phase 10 world {name} ({n} x {backend}): {time.perf_counter() - t0:.1f} s")
+    return results
+
+
+def _md_runtime_child(ckpt, crash_at, out):
+    """10d's worker: a state-coupled loop on the card under
+    checkpointed_loop, killed (os._exit) at step ``crash_at``."""
+    import os
+
+    import torch
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from invcompcamtrack_torch.parallel.runtime import checkpointed_loop
+
+    torch.set_num_threads(1)
+    final = checkpointed_loop(lambda st, i: _md_runtime_step(torch, st, i, crash_at, os),
+                              _md_runtime_state(torch), num_steps=RUNTIME_STEPS,
+                              ckpt_path=ckpt, every=5, resume=True)
+    np.save(out, final["x"].cpu().numpy())
+
+
+def _md_runtime_state(torch):
+    return {"x": torch.tensor(np.random.default_rng(0).normal(size=16), dtype=torch.float32,
+                              device="cuda")}
+
+
+def _md_runtime_step(torch, state, i, crash_at, os=None):
+    if i == crash_at:
+        os._exit(17)                      # a hard failure, no clean-up
+    A = torch.tensor(np.random.default_rng(3).normal(size=(16, 16)), dtype=torch.float32,
+                     device="cuda")
+    x = state["x"]
+    y = torch.tanh(A @ x) + 0.1 * torch.sin(torch.tensor(float(i), device="cuda") * x)
+    return {"x": y / torch.clamp(torch.linalg.norm(y), min=1e-6)}
+
+
+def _frame_gaps(a, b):
+    """Per-frame max abs pose coefficient gap of two (T, 6) runs."""
+    return np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max(axis=-1)
+
+
+def held_to_engine(name, gaps):
+    check(float(np.median(gaps)) <= ENGINE_MEDIAN_TOL and float(gaps.max()) <= ENGINE_WORST_TOL,
+          f"{name}: per-frame pose gaps median {float(np.median(gaps))} (limit "
+          f"{ENGINE_MEDIAN_TOL}), worst {float(gaps.max())} (limit {ENGINE_WORST_TOL})")
+
+
+def multi_device_phase(torch, dev, card):
+    """Path 10: the multi-device paths on the one card.  10a the engine
+    with its window BA landmark-sharded over 2 gloo ranks (and over 1 NCCL
+    rank), 10b the keyframe-sharded temporal BA (and the engine's temporal
+    route at 1 rank), 10c the VO pipeline on 4 gloo ranks, 10d the
+    runtime's crash and resume."""
+    from invcompcamtrack_torch.core.camera import CameraPyramid
+    from invcompcamtrack_torch.parallel.runtime import (checkpointed_loop, initialize_distributed,
+                                                        spawn_processes)
+    from invcompcamtrack_torch.vo import engine
+    from invcompcamtrack_torch.vo.metrics import ate_rmse
+
+    t_phase = time.perf_counter()
+    MD_DIR.mkdir(parents=True, exist_ok=True)
+    check(initialize_distributed() is False,
+          "initialize_distributed() did not return False in a single process")
+
+    # ---- 10a: path 6's workload, frames 0-17 (8 keyframes after bootstrap)
+    scene, poses, frames, seeds, centers = engine_workload(torch, n_render=MD_FRAMES)
+    work = MD_DIR / "engine.npz"
+    np.savez(work, frames=frames, poses=poses[:MD_FRAMES], seeds=seeds,
+             fc=np.asarray(scene.fc), cc=np.asarray(scene.cc), wh=np.asarray(scene.wh))
+    single = _md_run_engine(torch, work, _md_engine_cfg(ba_mode=MD_BA_MODE))
+    # the one-device engine against itself with the seeds moved by
+    # ENGINE_SEED_SHIFT (path 6's measure of its float32 spread, here in
+    # ba_mode MD_BA_MODE)
+    work_moved = MD_DIR / "engine_moved.npz"
+    moved = seeds + np.random.default_rng(SEED + 7).normal(size=seeds.shape) * ENGINE_SEED_SHIFT
+    np.savez(work_moved, frames=frames, poses=poses[:MD_FRAMES], seeds=moved.astype(seeds.dtype),
+             fc=np.asarray(scene.fc), cc=np.asarray(scene.cc), wh=np.asarray(scene.wh))
+    spread = _frame_gaps(_md_run_engine(torch, work_moved,
+                                        _md_engine_cfg(ba_mode=MD_BA_MODE))["poses"],
+                         single["poses"])
+    median_tol = max(ENGINE_MEDIAN_TOL, MD_SPREAD_FACTOR * float(np.median(spread)))
+    single_t = _md_run_engine(torch, work, _md_engine_cfg(ba_mode=MD_BA_MODE,
+                                                          window=MD_TEMPORAL_WINDOW))
+    n_frames = MD_FRAMES - 2
+    n_kf = n_frames // 2
+    eng = dict(work=str(work), mode="landmark", axis="model", window=5)
+    eng_t = dict(work=str(work), mode="temporal", axis="seq", window=MD_TEMPORAL_WINDOW)
+    two = md_world(MD_RANKS, "gloo", [("engine", eng), ("engine", eng_t),
+                                      ("temporal", dict(reps=TEMPORAL_REPS))], "landmark2")
+    one = md_world(1, "nccl", [("engine", eng), ("engine", eng_t)], "nccl1")
+    sh = [r[0] for r in two]
+    for k in ("poses", "landmarks", "valid"):
+        check(all(np.array_equal(sh[0][k], o[k]) for o in sh[1:]),
+              f"10a: the ranks' {k} differ")
+    gaps_a = _frame_gaps(sh[0]["poses"], single["poses"])
+    check(float(np.median(gaps_a)) <= median_tol and float(gaps_a.max()) <= ENGINE_WORST_TOL,
+          f"10a, landmark-sharded (2 ranks) vs one device: per-frame pose gaps median "
+          f"{float(np.median(gaps_a))} (limit {median_tol}), worst {float(gaps_a.max())} (limit "
+          f"{ENGINE_WORST_TOL})")
+    ate_a = float(ate_rmse(torch.tensor(sh[0]["trajectory"], dtype=torch.float64),
+                           torch.tensor(centers[:MD_FRAMES]), with_scale=False))
+    check(np.isfinite(ate_a) and ate_a < ENGINE_ATE_LIMIT, f"10a: ATE {ate_a}")
+    L = _md_engine_cfg().tracker.num_levels
+    maxiter = _md_engine_cfg().tracker.maxiter
+    want = {k: 0 for k in _md_counts()}
+    want.update({"K1": L * n_frames, "K2": L * maxiter * n_frames, "K6": 4 * L * n_kf,
+                 "K7": 4 * L * n_kf})
+    for r, o in enumerate(sh):
+        check(o["launches"] == want, f"10a: rank {r} launches {o['launches']}, not {want}")
+    check(single["launches"] == want, f"10a: one device launches {single['launches']}")
+    nccl = one[0][0]
+    exact_nccl = (np.array_equal(nccl["poses"], single["poses"])
+                  and np.array_equal(nccl["landmarks"], single["landmarks"]))
+    check(exact_nccl, "10a: the landmark-sharded engine on 1 NCCL rank differs from the "
+          f"unsharded engine (poses by {float(_frame_gaps(nccl['poses'], single['poses']).max())})")
+    kf_ms = {"one_device": single["seconds"] / n_kf * 1e3,
+             "landmark_sharded_2_gloo": [o["seconds"] / n_kf * 1e3 for o in sh],
+             "landmark_sharded_1_nccl": nccl["seconds"] / n_kf * 1e3}
+    print(f"[{card}] 10a landmark-sharded engine, 1280x720, ba_mode {MD_BA_MODE}, frames "
+          f"2-{MD_FRAMES - 1} ({n_kf} keyframes): ranks bit-equal; vs one device per-frame gap median "
+          f"{float(np.median(gaps_a)):.3g} (limit {median_tol:.3g}), worst {float(gaps_a.max()):.3g}; "
+          f"one device vs itself with the seeds {ENGINE_SEED_SHIFT} apart: median "
+          f"{float(np.median(spread)):.3g}, worst {float(spread.max()):.3g}; ATE {ate_a:.6f}; "
+          f"wall per keyframe period: one device {kf_ms['one_device']:.1f} ms, 2 gloo ranks "
+          + " / ".join(f"{t:.1f}" for t in kf_ms["landmark_sharded_2_gloo"])
+          + f" ms, 1 NCCL rank {kf_ms['landmark_sharded_1_nccl']:.1f} ms (equal to one device)")
+
+    # ---- 10b: the temporal BA, examples/run_temporal_scale_torch.py's window
+    ex = _temporal_example()
+    prob, pg, odo, _ = ex.build_problem(dev)
+    rep = ex.solve_replicated(prob, odo)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TEMPORAL_REPS):
+        rep = ex.solve_replicated(prob, odo)
+    torch.cuda.synchronize()
+    rep_ms = (time.perf_counter() - t0) / TEMPORAL_REPS * 1e3
+    rep_poses = rep[0].cpu().numpy()
+    t1 = md_world(1, "gloo", [("temporal", dict(reps=TEMPORAL_REPS))], "temporal1")[0][0]
+    t2 = [r[2] for r in two]
+    check(all(np.array_equal(t2[0][k], o[k]) for o in t2[1:] for k in ("poses", "landmarks")),
+          "10b: the ranks' temporal solves differ")
+    temporal = {}
+    for name, o in (("1_rank", t1), ("2_ranks", t2[0])):
+        gap = float(np.abs(o["poses"] - rep_poses).max())
+        check(np.isfinite(o["poses"]).all() and gap <= TEMPORAL_VS_REPLICATED,
+              f"10b: temporal ({name}) vs ba_solve(cg) {gap} (limit {TEMPORAL_VS_REPLICATED})")
+        check(o["max_pose_err"] <= TEMPORAL_POSE_ERR,
+              f"10b: temporal ({name}) pose error {o['max_pose_err']} (limit {TEMPORAL_POSE_ERR})")
+        temporal[name] = {"ms_per_solve": o["ms"], "vs_replicated": gap,
+                          "max_pose_err": o["max_pose_err"], "err": o["err"], "err0": o["err0"]}
+    t12 = float(np.abs(t1["poses"] - t2[0]["poses"]).max())
+    check(t12 <= TEMPORAL_RANKS_GAP, f"10b: temporal 1 vs 2 ranks {t12} (limit "
+          f"{TEMPORAL_RANKS_GAP})")
+    rep_err = float(np.abs(rep_poses - pg.cpu().numpy())[2:].max())
+    print(f"[{card}] 10b temporal BA K={ex.K} L={ex.L}: ba_solve(cg) {rep_ms:.1f} ms/solve "
+          f"(pose err {rep_err:.4g}); temporal 1 rank {t1['ms']:.1f} ms (vs cg "
+          f"{temporal['1_rank']['vs_replicated']:.3g}, pose err {t1['max_pose_err']:.4g}), "
+          f"2 gloo ranks {t2[0]['ms']:.1f} / {t2[1]['ms']:.1f} ms (vs cg "
+          f"{temporal['2_ranks']['vs_replicated']:.3g}); 1 vs 2 ranks {t12:.3g}")
+    # the engine's temporal route: window MD_TEMPORAL_WINDOW, keyframe-
+    # sharded over 2 gloo ranks and over 1 NCCL rank
+    tr2 = [r[1] for r in two]
+    tr1 = one[0][1]
+    for k in ("poses", "landmarks", "valid"):
+        check(all(np.array_equal(tr2[0][k], o[k]) for o in tr2[1:]),
+              f"10b: the temporal route's ranks' {k} differ")
+    route = {}
+    for name, o in (("2_gloo", tr2[0]), ("1_nccl", tr1)):
+        g = _frame_gaps(o["poses"], single_t["poses"])
+        ate = float(ate_rmse(torch.tensor(o["trajectory"], dtype=torch.float64),
+                             torch.tensor(centers[:MD_FRAMES]), with_scale=False))
+        check(np.isfinite(g).all() and float(g.max()) <= TEMPORAL_ROUTE_GAP,
+              f"10b: the temporal route ({name}) parts from one device by {float(g.max())} "
+              f"(limit {TEMPORAL_ROUTE_GAP})")
+        check(np.isfinite(ate) and ate < ENGINE_ATE_LIMIT, f"10b: temporal route ({name}) ATE {ate}")
+        check(o["launches"] == want, f"10b: temporal route ({name}) launches {o['launches']}")
+        route[name] = {"gaps": g.tolist(), "ate": ate, "ms_per_keyframe": o["seconds"] / n_kf * 1e3}
+    route_12 = float(_frame_gaps(tr1["poses"], tr2[0]["poses"]).max())
+    check(route_12 <= TEMPORAL_ROUTE_GAP, f"10b: the temporal route at 1 vs 2 ranks {route_12}")
+    ate_one_t = float(ate_rmse(torch.tensor(single_t["trajectory"], dtype=torch.float64),
+                               torch.tensor(centers[:MD_FRAMES]), with_scale=False))
+    print(f"[{card}] 10b the engine's temporal route (window {MD_TEMPORAL_WINDOW}, ba_mode "
+          f"{MD_BA_MODE}): 2 gloo ranks bit-equal; vs one device per-frame gap median / worst "
+          + ", ".join(f"{n} {float(np.median(r['gaps'])):.3g} / {max(r['gaps']):.3g}"
+                      for n, r in route.items())
+          + f"; 1 vs 2 ranks {route_12:.3g}; ATE one device {ate_one_t:.6f}, "
+          + ", ".join(f"{n} {r['ate']:.6f}" for n, r in route.items())
+          + "; wall per keyframe period: one device "
+          f"{single_t['seconds'] / n_kf * 1e3:.1f} ms, "
+          + ", ".join(f"{n} {r['ms_per_keyframe']:.1f} ms" for n, r in route.items()))
+
+    # ---- 10c: the VO pipeline, path 7's streams, 4 gloo ranks
+    s_scene, s_poses, s_frames, s_seeds, _ = streams_workload(torch, n_render=2 + PIPE_WINDOWS)
+    swork = MD_DIR / "streams.npz"
+    np.savez(swork, frames=s_frames, poses=s_poses[:, :2 + PIPE_WINDOWS], seeds=s_seeds,
+             fc=np.asarray(s_scene.fc), cc=np.asarray(s_scene.cc), wh=np.asarray(s_scene.wh))
+    # the pipeline promotes every frame: keyframe_stride 1
+    cfg1 = dataclasses.replace(_md_engine_cfg(), keyframe_stride=1)
+    tr = cfg1.tracker
+    cam = CameraPyramid.create(s_scene.fc, s_scene.cc, s_scene.wh, tr.num_levels, tr.psz)
+    seq, t_seq = [], 0.0
+    for s in range(ENGINE_STREAMS):
+        vo = engine.VisualOdometry(cam, s_scene.fc, s_scene.cc, cfg1)
+        vo.bootstrap(s_frames[s, 0], s_frames[s, 1], s_poses[s, 0], s_poses[s, 1], s_seeds[s])
+        chunk = torch.from_numpy(s_frames[s, 2:2 + PIPE_WINDOWS]).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p = vo.run_frames(chunk)
+        t_seq += time.perf_counter() - t0
+        seq.append((p, vo.landmarks.cpu().numpy(), vo.lm_valid.cpu().numpy()))
+    pipe = [r[0] for r in md_world(4, "gloo", [("pipeline", dict(work=str(swork)))], "pipeline4")]
+    for k in ("poses", "landmarks", "valid"):
+        check(all(all(np.array_equal(a, b) for a, b in zip(pipe[0][k], o[k])) for o in pipe[1:]),
+              f"10c: the ranks' {k} differ")
+    exact_pipe = True
+    for s in range(ENGINE_STREAMS):
+        g = _frame_gaps(pipe[0]["poses"][s], seq[s][0])
+        held_to_engine(f"10c, stream {s} through the ring vs its sequential engine", g)
+        exact_pipe &= (np.array_equal(pipe[0]["poses"][s], seq[s][0])
+                       and np.array_equal(pipe[0]["landmarks"][s], seq[s][1])
+                       and np.array_equal(pipe[0]["valid"][s], seq[s][2]))
+    n_in = ENGINE_STREAMS * PIPE_WINDOWS
+    stage_want = [{"K1": L * n_in, "K2": L * maxiter * n_in}, {"K6": 2 * L * n_in, "K7": 2 * L * n_in},
+                  {"K6": 2 * L * n_in, "K7": 2 * L * n_in}, {}]
+    for r, o in enumerate(pipe):
+        want = {k: stage_want[r].get(k, 0) for k in o["launches"]}
+        check(o["launches"] == want, f"10c: stage {r} launches {o['launches']}, not {want}")
+    ring_s = max(o["seconds"] for o in pipe)
+    print(f"[{card}] 10c VO pipeline, {ENGINE_STREAMS} streams x {PIPE_WINDOWS} keyframe steps "
+          f"through 4 gloo ranks: {n_in / ring_s:.2f} keyframe steps/s ({ring_s:.2f} s; "
+          f"sequential engines {n_in / t_seq:.2f} steps/s); carrier "
+          f"{pipe[0]['carrier_floats']} floats, {pipe[0]['ring_bytes_per_step']:.4g} ring bytes "
+          f"per step; streams vs sequential engines {'bit-equal' if exact_pipe else 'within path 6 limits'}")
+
+    # ---- 10d: the runtime, a crash mid-run and the resume, on the card
+    rt_dir = MD_DIR / "runtime"
+    import shutil
+    shutil.rmtree(rt_dir, ignore_errors=True)
+    rt_dir.mkdir(parents=True)
+    oracle = checkpointed_loop(lambda st, i: _md_runtime_step(torch, st, i, -1),
+                               _md_runtime_state(torch), num_steps=RUNTIME_STEPS,
+                               ckpt_path=rt_dir / "oracle", every=5)["x"].cpu().numpy()
+    ckpt, out = str(rt_dir / "crash"), str(rt_dir / "resumed.npy")
+    codes = spawn_processes(_md_runtime_child, 1, lambda r: (ckpt, 17, out), 300)
+    check(codes == [17] and not Path(out).exists(), f"10d: the crashing run exited {codes}")
+    check(Path(ckpt + ".npz").exists(), "10d: no checkpoint before the crash")
+    codes = spawn_processes(_md_runtime_child, 1, lambda r: (ckpt, -1, out), 300)
+    check(codes == [0], f"10d: the resumed run exited {codes}")
+    check(np.array_equal(np.load(out), oracle), "10d: the resumed run differs from the "
+          "uninterrupted one")
+    print(f"[{card}] 10d checkpointed_loop on the card: killed at step 17, resumed from step "
+          f"15, bit-equal to the uninterrupted run; initialize_distributed() False in one process")
+
+    launches = {"landmark_sharded_2_ranks": [o["launches"] for o in sh],
+                "landmark_sharded_1_nccl": nccl["launches"],
+                "temporal_route_2_ranks": [o["launches"] for o in tr2],
+                "temporal_route_1_nccl": tr1["launches"],
+                "pipeline_by_stage": [o["launches"] for o in pipe]}
+    return launches, {
+        "card": card, "ranks_10a": MD_RANKS, "frames_10a": n_frames, "keyframes_10a": n_kf,
+        "gaps_10a": gaps_a.tolist(), "spread_10a": spread.tolist(), "median_limit_10a": median_tol,
+        "ate_10a": ate_a, "wall_per_keyframe_ms": kf_ms,
+        "nccl_1_rank_equal": exact_nccl, "temporal": temporal, "temporal_1_vs_2": t12,
+        "replicated_ms": rep_ms, "replicated_pose_err": rep_err,
+        "temporal_route": route, "temporal_route_1_vs_2": route_12,
+        "temporal_route_one_device_ate": ate_one_t, "ba_mode": MD_BA_MODE,
+        "pipeline_steps_per_s": n_in / ring_s, "sequential_steps_per_s": n_in / t_seq,
+        "pipeline_seconds": [o["seconds"] for o in pipe], "pipeline_bit_equal": exact_pipe,
+        "carrier_floats": pipe[0]["carrier_floats"],
+        "ring_bytes_per_step": pipe[0]["ring_bytes_per_step"], "launches": launches,
+        "seconds": time.perf_counter() - t_phase}
 
 def main() -> None:
     import torch
@@ -2309,6 +2855,12 @@ def main() -> None:
     str_launches, str_out = streams_phase(torch, dev, card, all_counts, read_counts,
                                           expect_counts, eng_out)
 
+    # ---- phase 10: path 10, the multi-device paths on the one card: 10a
+    # the landmark-sharded engine, 10b the temporal BA, 10c the VO
+    # pipeline, 10d the runtime; each world's ranks set their counts to 0
+    # just before their path and read them just after
+    md_launches, md_out = multi_device_phase(torch, dev, card)
+
     print(f"[{card}] main path B={B} N={N} 1280x720: wall {main_ms:.3f} ms/call "
           f"(CUDA events, median of 10) = {B / main_ms * 1e3:.1f} pairs/s; device busy "
           f"{main_dev_ms:.3f} ms/call in {main_ops:.0f} device ops "
@@ -2374,6 +2926,8 @@ def main() -> None:
                 "features_launches": small_launches["features"][key[:2]],
                 "stereo_launches": small_launches["stereo"][key[:2]],
                 "replay_launches": small_launches["replay"][key[:2]],
+                "multi_device_launches": {p: ([c[key[:2]] for c in v] if isinstance(v, list)
+                                              else v[key[:2]]) for p, v in md_launches.items()},
                 "max_abs_err": err_, **times[key],
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms.get(key),
                 "shape": shapes[key]}
@@ -2458,6 +3012,7 @@ def main() -> None:
         "chains_vs_cpu": r_cmp, "seconds": r_seconds}}))
     print(json.dumps({"small_paths": {**small_out, "launches": small_launches}}))
     print(json.dumps({"k7_timed": k7_timed, "k7_vs_plain_by_side": k7_side_err}))
+    print(json.dumps({"multi_device": md_out}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

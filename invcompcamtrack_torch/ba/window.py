@@ -15,8 +15,12 @@ of ``invcompcamtrack_tpu/ba/window.py``).
   no host sync); the gauge is fixed by ``fixed_pose_mask``.
 
 The JAX module's ``lax.scan`` loops (CG, the LM iterations) are fixed
-Python loops.  Its ``psum_axis`` (the landmark-sharded path) belongs to
-the multi-device slice: only ``None`` is accepted.  Dense and
+Python loops.  Its ``psum_axis`` (a named mesh axis inside
+``shard_map``: the landmark-sharded path of ``ba/distributed.py``) is a
+``torch.distributed`` process group here: every rank holds its shard of
+the landmarks, and each pose-indexed reduction over them, the costs and
+counts, is all-reduced over the group (``parallel/comm.py::psum``) where
+the JAX module psums; None is the one-device program.  Dense and
 preconditioner solves use ``torch.linalg.solve_ex``, which, like
 ``jnp.linalg.solve``, returns non-finite values for a singular system
 instead of raising (and so never syncs with the host).
@@ -36,6 +40,7 @@ import torch
 
 from invcompcamtrack_torch.core import lie
 from invcompcamtrack_torch.ops.linalg import sym3x3_trunc_pinv
+from invcompcamtrack_torch.parallel.comm import psum as _psum
 from invcompcamtrack_torch.sfm.triangulate import sym3x3_inverse
 
 
@@ -64,13 +69,6 @@ class OdoFactors(NamedTuple):
     info_sqrt: torch.Tensor | None = None  # optional (..., K, 6, 6) square
     #   root of each factor's full information matrix in the residual
     #   coordinates; when set it replaces the isotropic w_t/w_r weighting
-
-
-def _no_psum(psum_axis) -> None:
-    if psum_axis is not None:
-        raise NotImplementedError(
-            "psum_axis (the landmark-sharded window BA) belongs to the port's "
-            "multi-device slice; only psum_axis=None is supported")
 
 
 def _per_window(fn, n: int, in_dims):
@@ -146,13 +144,14 @@ def _project_all(prob: BAProblem) -> torch.Tensor:
 
 
 def ba_residuals(prob: BAProblem, huber_delta: float | None = None,
-                 psum_axis: str | None = None):
+                 psum_axis=None):
     """(..., K, L, 2) masked residuals obs - proj and the mean cost (...).
 
     With ``huber_delta`` the cost is the Huber loss of each
     observation's residual norm; the residual tensor is unweighted.
+    With ``psum_axis`` (a process group over landmark shards) the cost's
+    numerator and count are all-reduced; the residuals stay the shard's.
     """
-    _no_psum(psum_axis)
     proj = _project_all(prob)
     m = prob.mask[..., None]
     # masked entries are exactly zero even where proj is inf/NaN; an
@@ -162,12 +161,13 @@ def ba_residuals(prob: BAProblem, huber_delta: float | None = None,
     raw = torch.where(m, prob.obs - proj, torch.zeros_like(proj))
     res = torch.where(torch.isfinite(raw), raw,
                       torch.where(m, torch.full_like(raw, 1e6), torch.zeros_like(raw)))
-    cnt = torch.clamp(torch.sum(prob.mask, dim=(-2, -1)), min=1)
+    cnt = torch.clamp(_psum(torch.sum(prob.mask, dim=(-2, -1)), psum_axis), min=1)
     if huber_delta is None:
-        return res, torch.sum(res * res, dim=(-3, -2, -1)) / (2.0 * cnt)
+        return res, _psum(torch.sum(res * res, dim=(-3, -2, -1)), psum_axis) / (2.0 * cnt)
     rn = torch.sqrt(torch.sum(res * res, dim=-1) + 1e-24)
     rho = torch.where(rn <= huber_delta, rn * rn, huber_delta * (2.0 * rn - huber_delta))
-    return res, (torch.sum(torch.where(prob.mask, rho, torch.zeros_like(rho)), dim=(-2, -1))
+    return res, (_psum(torch.sum(torch.where(prob.mask, rho, torch.zeros_like(rho)),
+                                 dim=(-2, -1)), psum_axis)
                  / (2.0 * cnt))
 
 
@@ -230,20 +230,22 @@ def _diag_blocks(H: torch.Tensor, K: int) -> torch.Tensor:
 
 
 def schur_cg_solve(Hpp, W, Hpx, fixed, rhs, num_iters: int = 32,
-                   tol: float = 1e-10, psum_axis: str | None = None,
+                   tol: float = 1e-10, psum_axis=None,
                    H_extra: torch.Tensor | None = None):
     """Matrix-free preconditioned CG on the reduced camera system
     ``S x = rhs``, ``S = Hpp_diag + fixed*I - W Hxp^T``, without forming
     the (6K, 6K) matrix; block-diagonal (6x6) preconditioner.  Leading
-    axes are independent systems, each with its own CG scalars."""
-    _no_psum(psum_axis)
+    axes are independent systems, each with its own CG scalars.  With
+    ``psum_axis`` (landmark shards) each landmark contraction is a local
+    partial all-reduced over the group: one (..., K, 6) per matvec and
+    one (..., K, 6, 6) for the preconditioner."""
     K = rhs.shape[-2]
     lead = rhs.shape[:-2]
     fixed_f = fixed.to(rhs.dtype)
 
     def matvec(x):
         t = torch.sum(Hpx * x[..., :, None, :, None], dim=(-4, -2))   # (...,L,3)
-        y = _w_times(W, t)                                     # (...,K,6)
+        y = _psum(_w_times(W, t), psum_axis)                   # (...,K,6)
         out = torch.sum(Hpp * x[..., None, :], dim=-1) + fixed_f[..., None] * x - y
         if H_extra is not None:
             out = out + torch.sum(H_extra * x.reshape(lead + (1, 6 * K)),
@@ -251,7 +253,7 @@ def schur_cg_solve(Hpp, W, Hpx, fixed, rhs, num_iters: int = 32,
         return out
 
     # block-diagonal preconditioner M_k = S_kk
-    S_kk = (Hpp - torch.einsum("...klim,...kljm->...kij", W, Hpx)
+    S_kk = (Hpp - _psum(torch.einsum("...klim,...kljm->...kij", W, Hpx), psum_axis)
             + fixed_f[..., None, None] * torch.eye(6, dtype=rhs.dtype, device=rhs.device))
     if H_extra is not None:
         S_kk = S_kk + _diag_blocks(H_extra, K)
@@ -286,7 +288,7 @@ def _schur_step(prob: BAProblem, damp, huber_delta: float | None = None,
                 reduced_solver: str = "dense", cg_iters: int = 32,
                 lm_eig_floor: float | None = None,
                 odo: OdoFactors | None = None,
-                psum_axis: str | None = None,
+                psum_axis=None,
                 motion_only=False):
     """One damped GN step by Schur elimination of the landmarks.
 
@@ -298,9 +300,11 @@ def _schur_step(prob: BAProblem, damp, huber_delta: float | None = None,
     lambda_max`` get a zero update (truncated pseudo-inverse).
     ``motion_only``: landmarks frozen (H_ll^-1 = 0); a Python bool, or a
     bool tensor (one per window) that selects between the joint and the
-    frozen step on the device.  Returns (dpose (..., K, 6), dlm (..., L, 3)).
+    frozen step on the device.  ``psum_axis``: a process group over
+    landmark shards; the pose-indexed blocks (H_pp, b_p, the Schur
+    products) are all-reduced over it.  Returns (dpose (..., K, 6),
+    dlm (..., L, 3)).
     """
-    _no_psum(psum_axis)
     K, L = prob.mask.shape[-2:]
     lead = prob.mask.shape[:-2]
     res, _ = ba_residuals(prob)
@@ -317,10 +321,10 @@ def _schur_step(prob: BAProblem, damp, huber_delta: float | None = None,
     # damped diagonal keeps S invertible
     Jp = torch.where(prob.fixed_pose_mask[..., :, None, None, None], torch.zeros_like(Jp), Jp)
 
-    Hpp = torch.einsum("...klri,...klrj->...kij", Jp, Jp)        # (...,K,6,6)
+    Hpp = _psum(torch.einsum("...klri,...klrj->...kij", Jp, Jp), psum_axis)  # (...,K,6,6)
     Hxx = torch.einsum("...klri,...klrj->...lij", Jx, Jx)        # (...,L,3,3)
     Hpx = torch.einsum("...klri,...klrj->...klij", Jp, Jx)       # (...,K,L,6,3)
-    bp = torch.sum(Jp * res[..., None], dim=(-3, -2))            # (...,K,6)
+    bp = _psum(torch.sum(Jp * res[..., None], dim=(-3, -2)), psum_axis)     # (...,K,6)
     bx = torch.sum(Jx * res[..., None], dim=(-4, -2))            # (...,L,3)
 
     # Levenberg damping on both diagonals
@@ -349,20 +353,22 @@ def _schur_step(prob: BAProblem, damp, huber_delta: float | None = None,
 
     # Schur complement: S = Hpp - sum_l Hpx Hxx^-1 Hxp
     W = torch.einsum("...klij,...ljm->...klim", Hpx, Hxx_inv)    # (...,K,L,6,3)
-    rhs = bp - _w_times(W, bx)                                   # (...,K,6)
+    rhs = bp - _psum(_w_times(W, bx), psum_axis)                 # (...,K,6)
     fixed = prob.fixed_pose_mask
 
     H_odo = None
     if odo is not None:
+        # pose-indexed only: the same on every landmark shard, added
+        # after the all-reduces
         H_odo, b_odo, _ = _odo_system(prob.poses, odo, fixed)
         rhs = rhs + b_odo
 
     if reduced_solver == "cg":
         dpose = schur_cg_solve(Hpp, W, Hpx, fixed, rhs, num_iters=cg_iters,
-                               H_extra=H_odo)
+                               psum_axis=psum_axis, H_extra=H_odo)
     else:
         diagK = torch.eye(K, dtype=dt, device=dev)[:, None, :, None]
-        S = (-torch.einsum("...klim,...qljm->...kiqj", W, Hpx)
+        S = (-_psum(torch.einsum("...klim,...qljm->...kiqj", W, Hpx), psum_axis)
              + diagK * Hpp[..., :, :, None, :])
         if H_odo is not None:
             S = S + H_odo.reshape(lead + (K, 6, K, 6))
@@ -380,11 +386,11 @@ def _schur_step(prob: BAProblem, damp, huber_delta: float | None = None,
 
 
 def _total_cost(prob: BAProblem, odo: OdoFactors | None,
-                huber_delta: float | None, psum_axis: str | None = None):
+                huber_delta: float | None, psum_axis=None):
     """(residuals, cost (...)) including the odometry-prior term."""
     res, err = ba_residuals(prob, huber_delta, psum_axis)
     if odo is not None:
-        cnt = torch.clamp(torch.sum(prob.mask, dim=(-2, -1)), min=1)
+        cnt = torch.clamp(_psum(torch.sum(prob.mask, dim=(-2, -1)), psum_axis), min=1)
         r = odo_residuals(prob.poses, odo)
         err = err + torch.sum(r * r, dim=(-2, -1)) / (2.0 * cnt)
     return res, err
@@ -399,7 +405,7 @@ def ba_solve(prob: BAProblem, num_iters: int = 10, damp_init: float = 1e-3,
              damp_min: float = 0.0,
              lm_eig_floor: float | None = None,
              odo: OdoFactors | None = None,
-             psum_axis: str | None = None,
+             psum_axis=None,
              motion_only=False):
     """Levenberg-Marquardt loop with accept/reject on the total error.
 
@@ -410,14 +416,16 @@ def ba_solve(prob: BAProblem, num_iters: int = 10, damp_init: float = 1e-3,
     landmark's step at most that fraction of its distance to the nearest
     observing camera), ``per_landmark_accept`` (each landmark's step
     accepted on its own robust cost, at the candidate poses),
-    ``damp_min`` (floor of the Levenberg parameter).  ``psum_axis``: only
-    ``None``.  Leading axes of the problem are independent windows, each
+    ``damp_min`` (floor of the Levenberg parameter).  ``psum_axis``: a
+    ``torch.distributed`` process group when the problem holds this rank's
+    shard of the landmarks (``ba/distributed.py``; every rank then holds
+    the same poses and takes the same accept/reject), None for the whole
+    problem on one device.  Leading axes of the problem are independent windows, each
     with its own cost, accept/reject and damping.
 
     Returns (poses, landmarks, (final cost, initial cost)).
     """
-    _no_psum(psum_axis)
-    _, err0 = _total_cost(prob, odo, huber_delta)
+    _, err0 = _total_cost(prob, odo, huber_delta, psum_axis)
     poses, lms = prob.poses, prob.landmarks
     damp = torch.full(prob.poses.shape[:-2], damp_init, dtype=poses.dtype,
                       device=poses.device)
@@ -426,7 +434,7 @@ def ba_solve(prob: BAProblem, num_iters: int = 10, damp_init: float = 1e-3,
         p0 = prob._replace(poses=poses, landmarks=lms)
         dpose, dlm = _schur_step(p0, damp, huber_delta, reduced_solver=reduced_solver,
                                  cg_iters=cg_iters, lm_eig_floor=lm_eig_floor,
-                                 odo=odo, motion_only=motion_only)
+                                 odo=odo, psum_axis=psum_axis, motion_only=motion_only)
         if lm_step_clip is not None:
             centers = lie.camera_center(lie.se3_exp(poses))                 # (...,K,3)
             d = torch.linalg.norm(lms[..., None, :, :] - centers[..., :, None, :], dim=-1)
@@ -437,7 +445,7 @@ def ba_solve(prob: BAProblem, num_iters: int = 10, damp_init: float = 1e-3,
             scale = torch.clamp(lm_step_clip * d_near / torch.clamp(dn, min=1e-12), max=1.0)
             dlm = dlm * scale[..., None]
         cand = prob._replace(poses=poses + dpose, landmarks=lms + dlm)
-        res_new, err_new = _total_cost(cand, odo, huber_delta)
+        res_new, err_new = _total_cost(cand, odo, huber_delta, psum_axis)
         ok = err_new < err
         ok_w = ok[..., None, None]
         if per_landmark_accept:
@@ -449,7 +457,7 @@ def ba_solve(prob: BAProblem, num_iters: int = 10, damp_init: float = 1e-3,
             poses = torch.where(ok_w, cand.poses, poses)
             lms = torch.where(ok_l[..., None], cand.landmarks, lms)
             _, err = _total_cost(prob._replace(poses=poses, landmarks=lms), odo,
-                                 huber_delta)
+                                 huber_delta, psum_axis)
         else:
             poses = torch.where(ok_w, cand.poses, poses)
             lms = torch.where(ok_w, cand.landmarks, lms)

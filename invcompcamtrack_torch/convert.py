@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from invcompcamtrack_torch.ba.pose_graph import PoseGraph
+from invcompcamtrack_torch.ba.temporal import TemporalBAProblem
 from invcompcamtrack_torch.core.camera import CameraPyramid
 from invcompcamtrack_torch.device import resolve
 from invcompcamtrack_torch.image.pyramid import Pyramid, PyramidLevel, build_pyramid
@@ -123,6 +124,19 @@ def vo_state_from_numpy(state, device: torch.device | str | None = None):
         kf_ptr=int(np.asarray(state.kf_ptr)), cur_pose=t("cur_pose", f32),
         frame_idx=int(np.asarray(state.frame_idx)),
         kf_valid_host=tuple(bool(v) for v in kf_valid))
+
+
+def temporal_problem_from_numpy(prob, device: torch.device | str | None = None,
+                                dtype: torch.dtype = torch.float32):
+    """Any object with the fields of ``ba/temporal.py::TemporalBAProblem``
+    (such as the JAX package's problem) -> the port's problem on one
+    device: poses, landmarks, observations, intrinsics, odometry and its
+    weight as ``dtype``, the masks bool."""
+    device = resolve(device)
+    return TemporalBAProblem(**{
+        k: tensor_from_numpy(np.asarray(v), device,
+                             torch.bool if k in ("mask", "fixed_pose_mask") else dtype)
+        for k, v in prob._asdict().items()})
 
 
 def pose_graph_from_numpy(g, device: torch.device | str | None = None,

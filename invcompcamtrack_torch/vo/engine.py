@@ -50,20 +50,28 @@ sparse LK's K6 and K7 (``match/lk.py``) and, with
 ``odo_info_weighted=True``, K5 (``image/patch.py::extract_patches``); K1,
 K5, K6 and K7 read the S streams' planes as one stack.
 
-Not ported yet: the multi-device BA paths (``ba_mesh``,
-``ba_temporal_mesh``), which raise ``NotImplementedError`` unless
-``None``.
+The multi-device window BA: with ``VOConfig.ba_mesh`` (a ``DeviceMesh``)
+the window BA runs landmark-sharded over its ``ba_mesh_axis``
+(``ba/distributed.py``), with ``ba_temporal_mesh`` the joint phase runs
+keyframe-sharded over its ``ba_temporal_axis`` (``ba/temporal.py``).
+Every rank of the world runs the whole engine on the same frames; only
+the BA inside it is sharded, and its all-reduced results leave every
+rank with the same state, so the ranks take the same host decisions.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
+from invcompcamtrack_torch.ba.distributed import ba_solve_sharded
+from invcompcamtrack_torch.ba.temporal import TemporalBAProblem, temporal_ba_solve
 from invcompcamtrack_torch.ba.window import BAProblem, OdoFactors, ba_residuals, ba_solve
 from invcompcamtrack_torch.config import ICGNParams
 from invcompcamtrack_torch.core import lie
@@ -74,6 +82,7 @@ from invcompcamtrack_torch.image.patch import extract_patches
 from invcompcamtrack_torch.image.pyramid import Pyramid, PyramidLevel, build_pyramid
 from invcompcamtrack_torch.match.features import shi_tomasi_corners
 from invcompcamtrack_torch.match.lk import lk_forward_backward
+from invcompcamtrack_torch.parallel.comm import axis_size
 from invcompcamtrack_torch.sfm.triangulate import triangulate_dlt, triangulate_gn
 from invcompcamtrack_torch.solver.icgn import cam_level_padding, track_pose
 
@@ -81,8 +90,8 @@ from invcompcamtrack_torch.solver.icgn import cam_level_padding, track_pose
 @dataclasses.dataclass
 class VOConfig:
     """The JAX module's ``VOConfig``: same fields and defaults (see there
-    for the measurements behind each default), less the multi-device BA's
-    axis names and CG iterations, which come with its slice."""
+    for the measurements behind each default).  Its meshes are
+    ``torch.distributed.device_mesh.DeviceMesh``es here."""
 
     tracker: ICGNParams = dataclasses.field(default_factory=ICGNParams)
     max_landmarks: int = 512
@@ -115,8 +124,18 @@ class VOConfig:
     #   isotropic prior
     odo_info_px_sigma: float = 0.3  # assumed 1-sigma of the LK observations (px)
     ba_debug: bool = False       # print per-keyframe BA costs (syncs)
-    ba_mesh: object = None       # multi-device BA: not in this slice
-    ba_temporal_mesh: object = None  # multi-device BA: not in this slice
+    ba_mesh: object = None       # DeviceMesh: run the window BA landmark-
+    #   sharded over `ba_mesh_axis` (ba/distributed.py, the same ba_solve);
+    #   max_landmarks must divide evenly
+    ba_mesh_axis: str = "model"
+    ba_temporal_mesh: object = None  # DeviceMesh: run the JOINT window-BA
+    #   phase keyframe-sharded over `ba_temporal_axis` (ba/temporal.py);
+    #   `window` must divide evenly.  The chain uses the isotropic
+    #   odo_sigma_t/odo_sigma_r weights: odo_info_weighted is ignored on
+    #   this path (warned at engine construction)
+    ba_temporal_axis: str = "seq"
+    ba_temporal_cg_iters: int = 48  # PCG iterations on the distributed
+    #                                 reduced camera system per LM step
 
 
 class VOState(NamedTuple):
@@ -145,11 +164,21 @@ class VOState(NamedTuple):
     kf_valid_host: Tuple[bool, ...]  # host mirror of kf_valid
 
 
-def _raise_multi_device(cfg: VOConfig) -> None:
-    if cfg.ba_mesh is not None or cfg.ba_temporal_mesh is not None:
-        raise NotImplementedError(
-            "ba_mesh and ba_temporal_mesh (the multi-device window BA) belong to "
-            "the port's multi-device slice; leave them None")
+def _check_meshes(cfg: VOConfig) -> None:
+    """The BA meshes are DeviceMeshes, and the sharded axes divide the
+    landmark table and the window."""
+    for name, axis, n_rows in (("ba_mesh", cfg.ba_mesh_axis, cfg.max_landmarks),
+                               ("ba_temporal_mesh", cfg.ba_temporal_axis, cfg.window)):
+        mesh = getattr(cfg, name)
+        if mesh is None:
+            continue
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"VOConfig.{name} must be a torch DeviceMesh, "
+                            f"got {type(mesh).__name__}")
+        n = axis_size(mesh, axis)
+        if n_rows % n != 0:
+            raise ValueError(f"VOConfig.{name}: {n_rows} rows not divisible by "
+                             f"{axis} axis size {n}")
 
 
 # ---------------------------------------------------------------------------
@@ -473,12 +502,63 @@ def _info_sqrt(cfg: VOConfig, kf_rel, kf_poses, kf_rel_info) -> torch.Tensor:
     return torch.where(finite[..., None, None], S, torch.sqrt(W_iso).expand_as(S))
 
 
+def _joint_ba_temporal(cfg: VOConfig, prob: BAProblem, kf_rel, kf_rel_valid, kf_valid,
+                       new_slot: int, motion_only):
+    """The engine's joint window-BA phase on the keyframe-sharded temporal
+    solver (``ba/temporal.py``), each stream in turn.
+
+    The ring window is rolled to chronological order (oldest keyframe at
+    row 0), so ring-adjacent odometry measurements become array-adjacent
+    chain factors.  The measured relative group ``rel_{k->k+1}`` is
+    linearised into the chain's coefficient-space convention at the
+    current pose, ``odom[k] = log(rel_{k->k+1} exp(p_k)) - p_k``, with
+    the weights 1/odo_sigma_t^2 and 1/odo_sigma_r^2 per coefficient.
+    """
+    S = prob.poses.shape[0]
+    K = prob.poses.shape[-2]
+    shift = -(new_slot + 1)
+    dt, dev = prob.poses.dtype, prob.poses.device
+
+    def roll(a, dim):
+        return torch.roll(a, shift, dims=dim)
+
+    poses_c, obs_c, mask_c = roll(prob.poses, -2), roll(prob.obs, -3), roll(prob.mask, -2)
+    fixed_c = roll(prob.fixed_pose_mask, -1)
+    rel_c, relv_c, kfv_c = roll(kf_rel, -3), roll(kf_rel_valid, -1), roll(kf_valid, -1)
+
+    # chain factor k couples chronological rows k -> k+1; its measured
+    # relative group lives at rolled row k+1
+    rel_next = torch.roll(rel_c, -1, dims=-3)
+    odom = lie.se3_log(lie.se3_compose(rel_next, lie.se3_exp(poses_c))) - poses_c
+    f_valid = (torch.roll(relv_c, -1, dims=-1) & kfv_c & torch.roll(kfv_c, -1, dims=-1)
+               & (torch.arange(K, device=dev) < K - 1))
+    w6 = torch.cat([torch.full((3,), (1.0 / cfg.odo_sigma_t) ** 2, dtype=dt, device=dev),
+                    torch.full((3,), (1.0 / cfg.odo_sigma_r) ** 2, dtype=dt, device=dev)])
+    w = torch.where(f_valid[..., None], w6, torch.zeros_like(w6))
+    if not cfg.odo_prior:
+        w = torch.zeros_like(w)
+
+    out = []
+    for s in range(S):
+        tprob = TemporalBAProblem(
+            poses=poses_c[s], landmarks=prob.landmarks[s], obs=obs_c[s], mask=mask_c[s],
+            fx=prob.fx, fy=prob.fy, cx=prob.cx, cy=prob.cy, fixed_pose_mask=fixed_c[s],
+            odom=odom[s], odom_weight=w[s])
+        mo = motion_only if isinstance(motion_only, bool) else motion_only[s]
+        out.append(temporal_ba_solve(
+            tprob, cfg.ba_temporal_mesh, axis=cfg.ba_temporal_axis, num_iters=cfg.ba_iters,
+            huber_delta=cfg.huber_px, cg_iters=cfg.ba_temporal_cg_iters, motion_only=mo))
+    p_c = torch.stack([o[0] for o in out])
+    lms = torch.stack([o[1] for o in out])
+    e, e0 = (torch.stack([o[2][i] for o in out]) for i in (0, 1))
+    return torch.roll(p_c, new_slot + 1, dims=-2), lms, (e, e0)
+
+
 def _promote_commit(state: VOState, pyr: Pyramid, p_new,
                     cam: CameraPyramid, cfg: VOConfig,
                     tri: _TriOut, rel_info=None) -> VOState:
     """Promote parts 3-4: ring write, gross-outlier gating, windowed BA,
     post-BA retirement."""
-    _raise_multi_device(cfg)
     K = cfg.window
     fx, fy, cx, cy, _, _ = cam.level(0)
     prev = state.kf_ptr
@@ -574,12 +654,21 @@ def _promote_commit(state: VOState, pyr: Pyramid, p_new,
             w_r=torch.tensor(1.0 / cfg.odo_sigma_r, dtype=dt, device=dev),
             info_sqrt=info_sqrt)
 
+    if cfg.ba_mesh is not None:
+        # landmark-sharded window BA over the configured mesh: the same
+        # ba_solve with all-reduced pose reductions (ba/distributed.py);
+        # everything else in the step runs alike on every rank
+        def _ba(pr, **kw):
+            return ba_solve_sharded(pr, cfg.ba_mesh, axis=cfg.ba_mesh_axis, **kw)
+    else:
+        _ba = ba_solve
+
     # ---- the BA, always run; do_ba selects its result below ----
     poses, lms = prob.poses, prob.landmarks
     if cfg.ba_mode in ("structure", "hybrid"):
         # structure phase: all poses fixed, refine the map only
         n_s = cfg.ba_struct_iters if cfg.ba_mode == "hybrid" else cfg.ba_iters
-        _, lms, (es, es0) = ba_solve(
+        _, lms, (es, es0) = _ba(
             prob._replace(fixed_pose_mask=torch.ones_like(kf_valid)),
             num_iters=n_s, huber_delta=cfg.huber_px, lm_step_clip=cfg.ba_lm_step_clip,
             per_landmark_accept=True, damp_min=1e-5, lm_eig_floor=cfg.ba_lm_eig_floor)
@@ -600,10 +689,15 @@ def _promote_commit(state: VOState, pyr: Pyramid, p_new,
             mo = turnover <= cfg.polish_joint_turnover
             joint_prob = prob._replace(
                 landmarks=torch.where(mo[..., None, None], lms, prob.landmarks))
-        poses_j, lms_j, (ej, ej0) = ba_solve(
-            joint_prob, num_iters=cfg.ba_iters, huber_delta=cfg.huber_px,
-            lm_step_clip=cfg.ba_lm_step_clip, per_landmark_accept=False,
-            damp_min=1e-5, lm_eig_floor=cfg.ba_lm_eig_floor, odo=odo, motion_only=mo)
+        if cfg.ba_temporal_mesh is not None:
+            # the long-window path: the keyframe-sharded solve
+            poses_j, lms_j, (ej, ej0) = _joint_ba_temporal(
+                cfg, joint_prob, kf_rel, kf_rel_valid, kf_valid, new_slot, mo)
+        else:
+            poses_j, lms_j, (ej, ej0) = _ba(
+                joint_prob, num_iters=cfg.ba_iters, huber_delta=cfg.huber_px,
+                lm_step_clip=cfg.ba_lm_step_clip, per_landmark_accept=False,
+                damp_min=1e-5, lm_eig_floor=cfg.ba_lm_eig_floor, odo=odo, motion_only=mo)
         if cfg.ba_mode == "hybrid":
             # observability gate (polish_max_parallax_deg)
             poses = torch.where(polish_on[..., None, None], poses_j, poses)
@@ -766,7 +860,15 @@ class VisualOdometry:
     def __init__(self, cam: CameraPyramid, fc, cc, cfg: VOConfig | None = None,
                  dtype=torch.float32, device=None):
         self.cfg = cfg or VOConfig()
-        _raise_multi_device(self.cfg)
+        _check_meshes(self.cfg)
+        if self.cfg.odo_info_weighted and self.cfg.ba_temporal_mesh is not None:
+            # the temporal chain carries isotropic per-coefficient weights
+            # only, as in the JAX module: warn instead of dropping silently
+            warnings.warn(
+                "odo_info_weighted is ignored on the ba_temporal_mesh path: the "
+                "temporal chain uses the isotropic odo_sigma_t/odo_sigma_r weights "
+                "(per-factor (K, 6) information weighting is not implemented there)",
+                RuntimeWarning, stacklevel=2)
         self.device = resolve(device)
         self.cam = cam.to(self.device)
         self.fc = fc

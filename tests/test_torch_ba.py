@@ -165,12 +165,19 @@ def test_ba_motion_only_as_tensor_equals_bool(rng, mo):
 
 
 def test_ba_psum_axis_raises(rng):
+    """``psum_axis`` is a torch.distributed process group or None: the JAX
+    module's axis name means nothing outside ``shard_map``, so it raises
+    (the landmark-sharded solve itself: tests/test_torch_ba_distributed.py)."""
     d, _ = _make_problem(rng, K=3, L=8)
     prob = _to_torch(d, win.BAProblem)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         win.ba_solve(prob, num_iters=1, psum_axis="model")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         win.ba_residuals(prob, psum_axis="model")
+    with pytest.raises(TypeError):
+        win.schur_cg_solve(*(torch.zeros(s) for s in ((3, 6, 6), (3, 8, 6, 3), (3, 8, 6, 3))),
+                           torch.zeros(3, dtype=torch.bool), torch.zeros(3, 6),
+                           psum_axis="model")
 
 
 @pytest.mark.parametrize("solver", ["dense", "cg"])

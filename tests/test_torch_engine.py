@@ -274,12 +274,17 @@ def test_bootstrap_from_images_self_initialization():
 
 
 def test_engine_multi_device_options_raise_and_default_device():
+    """The multi-device BA options: the three VOConfig fields with the JAX
+    package's defaults, and a BA mesh that is not a DeviceMesh is refused
+    (the sharded engines themselves: tests/test_torch_ba_distributed.py)."""
+    for f in ("ba_mesh_axis", "ba_temporal_axis", "ba_temporal_cg_iters"):
+        assert getattr(engine.VOConfig(), f) == getattr(jeng.VOConfig(), f)
     scene = synthetic.make_scene(np.random.default_rng(0), wh=(64, 48), fc=(60.0, 60.0))
     tr = ICGNParams(lv_f=1, lv_l=0, psz=8, maxiter=2)
     cam = CameraPyramid.create(scene.fc, scene.cc, scene.wh, tr.num_levels, tr.psz,
                                device="cpu")
-    for kw in (dict(ba_mesh=object()), dict(ba_temporal_mesh=object())):
-        with pytest.raises(NotImplementedError):
+    for kw in (dict(ba_mesh=object()), dict(ba_temporal_mesh="seq")):
+        with pytest.raises(TypeError):
             engine.VisualOdometry(cam, scene.fc, scene.cc,
                                   engine.VOConfig(tracker=tr, **kw), device="cpu")
     if not torch.cuda.is_available():

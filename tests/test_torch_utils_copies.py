@@ -1,6 +1,6 @@
 """The port's own copies of the JAX package's jax-free host modules
-(``utils/{rotation,splines,sensors,plot3d,native}.py``) against the
-originals, one case per function, on the same inputs: host numpy code,
+(``utils/{rotation,splines,sensors,plot3d,native}.py``,
+``parallel/model.py``) against the originals, one case per function, on the same inputs: host numpy code,
 so equal bit for bit (``plot_cameras`` takes the port's float32 se3_exp,
 held to float32 rounding).
 """
@@ -8,12 +8,14 @@ held to float32 rounding).
 import numpy as np
 import pytest
 
+from invcompcamtrack_tpu.parallel import model as jmodel
 from invcompcamtrack_tpu.utils import io as jio
 from invcompcamtrack_tpu.utils import native as jnative
 from invcompcamtrack_tpu.utils import plot3d as jplot3d
 from invcompcamtrack_tpu.utils import rotation as jrotation
 from invcompcamtrack_tpu.utils import sensors as jsensors
 from invcompcamtrack_tpu.utils import splines as jsplines
+from invcompcamtrack_torch.parallel import model
 from invcompcamtrack_torch.utils import io, native, plot3d, rotation, sensors, splines
 
 
@@ -144,3 +146,29 @@ def test_native_copy(tmp_path):
     assert isinstance(a, io.PointCamFile) and isinstance(b, jio.PointCamFile)
     for k in ("pose", "fc", "cc", "wh", "pt3d", "pt2d"):
         _same(getattr(a, k), getattr(b, k))
+
+
+@pytest.mark.parametrize("name, args", [
+    ("tracker_psum_bytes", [(256, 10, 5), (16, 3, 2, 2)]),
+    ("ba_psum_bytes", [(5, 12), (8, 6, "cg", 48), (32, 8, "cg", 64, 8)]),
+    ("engine_keyframe_psums", [(5, 6, 6), (5, 6, 6, "cg", 48), (16, 4, 8, "dense", 32, 2)]),
+    ("temporal_ba_psum_bytes", [(2048, 8, 64), (512, 6), (96, 12, 64, 8)]),
+])
+def test_parallel_model_copy(name, args):
+    """Every byte count of the communication model equals the original's."""
+    for a in args:
+        assert getattr(model, name)(*a) == getattr(jmodel, name)(*a)
+
+
+def test_parallel_model_step_copy():
+    """``model_step`` takes the link's all-reduce rate as an argument (the
+    port states none); passed the JAX module's own constant it returns
+    the JAX module's model, efficiency included."""
+    assert not hasattr(model, "V5E_ICI_ALLREDUCE_BYTES_PER_S")
+    rate = jmodel.V5E_ICI_ALLREDUCE_BYTES_PER_S
+    for b, c, n, lat in ((1e6, 0.01, 0, 0.0), (3.5e7, 0.2, 120, 2e-5)):
+        mine = model.model_step(b, c, rate, n_collectives=n, latency_per_collective_s=lat)
+        theirs = jmodel.model_step(b, c, n_collectives=n, latency_per_collective_s=lat)
+        assert mine == model.CommModel(theirs.bytes_per_step, theirs.comm_time_s,
+                                       theirs.compute_time_s)
+        assert mine.scaling_efficiency == theirs.scaling_efficiency
