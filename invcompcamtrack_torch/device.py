@@ -24,3 +24,19 @@ def default_device() -> torch.device:
 def resolve(device: torch.device | str | None) -> torch.device:
     """``None`` -> :func:`default_device`; anything else -> torch.device."""
     return default_device() if device is None else torch.device(device)
+
+
+
+def card_line(device: torch.device | str | None) -> str:
+    """What a measurement ran on, for the line beside its times: the
+    card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` prints them, or ``"cpu"``."""
+    dev = resolve(device)
+    if dev.type != "cuda":
+        return dev.type
+    import subprocess
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]

@@ -23,7 +23,9 @@ def test_port_imports_no_jax():
     without bringing in JAX or anything of the JAX package (the engines
     ``VisualOdometry`` and ``VisualOdometryBatch`` among them, and the
     multi-device modules of ``parallel/`` and ``ba/``); and no source line
-    of the port or of chip_smoke.py names either in an import."""
+    of the port, of chip_smoke.py or of an example twin
+    (``examples/*_torch.py``) names either, ``tests`` or a JAX example in
+    an import."""
     code = ("import importlib, pkgutil, sys\n"
             "import invcompcamtrack_torch as pkg\n"
             "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
@@ -49,12 +51,23 @@ def test_port_imports_no_jax():
     assert bad == "[]"
     # the walk saw the package: every slice's modules are among them
     assert int(count) >= 77, res.stdout
-    sources = [*sorted((REPO / "invcompcamtrack_torch").rglob("*.py")), REPO / "chip_smoke.py"]
+    twins = sorted((REPO / "examples").glob("*_torch.py"))
+    assert {p.stem for p in twins} >= {
+        "run_of_point_track_torch", "run_kitti_vo_torch", "run_stereo_track_torch",
+        "run_nvm_sequence_torch", "run_temporal_scale_torch", "stream_batch_gap_torch",
+        "run_accuracy_log_torch", "run_robustness_torch", "run_accuracy_suite_torch",
+        "run_flow_epe_torch", "run_ncc_eval_torch"}, twins
+    jax_examples = {p.stem for p in (REPO / "examples").glob("*.py")} - {p.stem for p in twins}
+    sources = [*sorted((REPO / "invcompcamtrack_torch").rglob("*.py")), REPO / "chip_smoke.py",
+               *twins]
     for path in sources:
         for ln in path.read_text().splitlines():
             words = ln.split("#")[0].split()
             if words[:1] in (["import"], ["from"]):
-                assert not words[1].startswith(("jax", "invcompcamtrack_tpu")), (path, ln)
+                for name in words[1:] if words[0] == "import" else words[1:2]:
+                    top = name.strip(",").split(".")[0]
+                    assert not top.startswith(("jax", "invcompcamtrack_tpu")), (path, ln)
+                    assert top not in {"tests", *jax_examples}, (path, ln)
 
 
 def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):
