@@ -78,9 +78,10 @@ it and read just after:
    map-RMS gains) through the accuracy log twin (per tracked frame
    K1 x 4, K2 x 32; per keyframe K6 x 16, K7 x 16), 11b the robustness
    twin's heaviest degradation with ``dopatchnorm`` (the kernels'
-   ``patch_norm`` route) on 20 frames of its corridor, card vs CPU, 11c
-   the NCC evaluation twin (K5 x 2, K6 x 3, K7 x 3) and 11d the flow-EPE
-   twin on one 640x480 pair (K8 x 16, K5 x 4), each card vs CPU.
+   ``patch_norm`` route) on 20 frames of its corridor, card vs CPU and
+   its ATE against the JAX package's, 11c the NCC evaluation twin (K5 x 2,
+   K6 x 3, K7 x 3; the estimated positions) and 11d the flow-EPE twin on
+   one 640x480 pair (K8 x 16, K5 x 4), each card vs CPU.
 
 It checks that each path went through its kernels and solved its
 problem, compares the card with the port's CPU run, then times the paths
@@ -379,19 +380,30 @@ JAX_NOISYMAP = {"off_ate": 0.06552, "off_map_rms": 0.24925, "structure_ate": 0.0
 # tracked frame on, in both packages.  Measured on a CPU over frames
 # 2-19: the JAX package's float32 run parts from its float64 run by 4.4e-3
 # at the first tracked frame, 1.5e-2 at the median frame and 4.75e-2 at
-# the worst; the port in float64 equals JAX float64 within 2.9e-7, the
+# the worst; the port in float64 equals JAX float64 within 5.6e-14, the
 # port's float32 run parts from JAX float32 by 6.2e-4 (median) and
 # 1.0e-3 (worst), and moving the seeds by 1e-6 moves the port by 9.5e-7
-# (median) only.  The card is another float32 summation order, so it is
-# held as the two packages' float32 runs hold to each other: the median
-# frame within twice their median gap, the worst within path 6's
-# ENGINE_WORST_TOL.
+# (median) only.  The port's own float32 run parts from its float64 run
+# as JAX's does: 4.58e-3 at the first tracked frame, 1.53e-2 at the
+# median frame, 4.77e-2 at the worst (DEGRADED_PORT_F32_F64).  The card is
+# another float32 summation order, so it is held as the two packages'
+# float32 runs hold to each other: the median frame within twice their
+# median gap, the worst within path 6's ENGINE_WORST_TOL.  A second
+# guard, from the JAX package alone: the card's ATE lies within
+# DEGRADED_ATE_TOL of JAX float32's ATE on these frames (0.03060), the JAX
+# package's own float32-to-float64 ATE spread there (float64: 0.04389),
+# so a drift that moves the trajectory as far as float64 does fails.
+# All these CPU figures: tests/jax_reference.py degraded.
 DEGRADED_FRAMES = 20
 DEGRADED_MEDIAN_TOL = 1.3e-3
+DEGRADED_PORT_F32_F64 = (4.58e-3, 1.53e-2, 4.77e-2)
+JAX_DEGRADED_ATE = 0.03060
+DEGRADED_ATE_TOL = 0.0133
 # 11c: the NCC evaluation twin (320x240, 150 points), card vs CPU per
-# point: LK under sparse LK's rule (median gap <= 1e-3 px); FFT-NCC and
-# MOSSE within NCC_CARD_TOL px at every point: on the CPU the port and the
-# JAX example part by 1.3e-5 and 2.0e-5 px at the worst point (their
+# point, on the estimated positions (the largest coordinate gap): LK under
+# sparse LK's rule (median gap <= 1e-3 px); FFT-NCC and MOSSE within
+# NCC_CARD_TOL px at every point: on the CPU the port and the JAX example's
+# endpoint errors part by 1.3e-5 and 2.0e-5 px at the worst point (their
 # means by 5.5e-8 px), and the limit is 5 x that.
 LK_CARD_MEDIAN_TOL = 1e-3
 NCC_CARD_TOL = 1e-4
@@ -1491,8 +1503,15 @@ def examples_phase(torch, dev, card, all_counts, read_counts, expect_counts):
           f"frames: card ATE {deg_card['ate_rmse']:.5f}, CPU ATE {deg_cpu['ate_rmse']:.5f}; "
           "per-frame card vs CPU gaps " + " ".join(f"{g:.2e}" for g in gaps)
           + f" (median {np.median(gaps):.2e}, limit {DEGRADED_MEDIAN_TOL}; worst limit "
-          f"{ENGINE_WORST_TOL}); the CPU run took {cpu_s:.1f} s")
+          f"{ENGINE_WORST_TOL}); the port's float32 vs float64 on a CPU: first, median, worst "
+          + " ".join(f"{g:.2e}" for g in DEGRADED_PORT_F32_F64)
+          + f"; card ATE vs the JAX package's float32 {JAX_DEGRADED_ATE}: "
+          f"{abs(deg_card['ate_rmse'] - JAX_DEGRADED_ATE):.2e} (limit {DEGRADED_ATE_TOL}); "
+          f"the CPU run took {cpu_s:.1f} s")
     check(np.isfinite(deg_card["ate_rmse"]), "11b: non-finite ATE")
+    check(abs(deg_card["ate_rmse"] - JAX_DEGRADED_ATE) <= DEGRADED_ATE_TOL,
+          f"11b degraded corridor: card ATE {deg_card['ate_rmse']} against the JAX package's "
+          f"{JAX_DEGRADED_ATE} (limit {DEGRADED_ATE_TOL})")
     check(float(np.median(gaps)) <= DEGRADED_MEDIAN_TOL and float(gaps.max()) <= ENGINE_WORST_TOL,
           f"11b degraded corridor, card vs CPU: per-frame pose gaps median "
           f"{float(np.median(gaps))} (limit {DEGRADED_MEDIAN_TOL}), worst {float(gaps.max())} "
@@ -1507,17 +1526,19 @@ def examples_phase(torch, dev, card, all_counts, read_counts, expect_counts):
     t0 = time.perf_counter()
     nev = _example("run_ncc_eval_torch")
     reset(*all_counts)
-    e_card = nev.ncc_eval()
+    e_card, uv_card = nev.ncc_eval(with_uv=True)
     torch.cuda.synchronize()
     ncc_launches = read_counts()
     # LK over 3 levels (K6, K7 once per level); the template and query
     # patches at side 32 (K5 twice)
     expect_counts("11c NCC evaluation", ncc_launches, {"K5": 2, "K6": 3, "K7": 3})
-    e_cpu = nev.ncc_eval("cpu")
-    ncc_gaps = {k: np.abs(e_card[k] - e_cpu[k]) for k in e_card}
+    e_cpu, uv_cpu = nev.ncc_eval("cpu", with_uv=True)
+    # the estimated positions, not only their distances to the truth
+    ncc_gaps = {k: np.abs(uv_card[k] - uv_cpu[k]).max(axis=1) for k in uv_card}
     print(f"[{card}] 11c NCC evaluation 320x240, 150 points: "
           + "; ".join(f"{k} card {nev.summary(e_card[k])}, CPU {nev.summary(e_cpu[k])}, "
-                      f"per-point gap median {np.median(g):.2e} max {g.max():.2e}"
+                      f"per-point position gap median {np.median(g):.2e} max {g.max():.2e}, "
+                      f"EPE gap max {np.abs(e_card[k] - e_cpu[k]).max():.2e}"
                       for k, g in ncc_gaps.items()))
     check(all(np.isfinite(e).all() for e in e_card.values()), "11c: non-finite EPE")
     check(float(np.median(ncc_gaps["LK"])) <= LK_CARD_MEDIAN_TOL,

@@ -36,9 +36,10 @@ def _exp(p):
         np.float64)
 
 
-def ncc_eval(device=None, wh=(320, 240), n_points=150):
+def ncc_eval(device=None, wh=(320, 240), n_points=150, with_uv=False):
     """The JAX example's pair and points -> {label: (n_points,) endpoint
-    errors in pixels} for LK, FFT-NCC and MOSSE."""
+    errors in pixels} for LK, FFT-NCC and MOSSE; with ``with_uv`` also
+    {label: (n_points, 2) estimated positions in the second frame}."""
     dev = resolve(device)
     rng = np.random.default_rng(0)
     scene = synthetic.make_scene(rng, wh=wh, fc=(300.0, 302.0))
@@ -64,9 +65,6 @@ def ncc_eval(device=None, wh=(320, 240), n_points=150):
     pa = build_pyramid(t32(img_a), L, pad)
     pb = build_pyramid(t32(img_b), L, pad)
 
-    def epe(est):
-        return np.linalg.norm(est.cpu().numpy().astype(np.float64) - uv_b, axis=1)
-
     # (a) pyramidal LK
     ca = t32(uv_a)
     lk, _ = track_points_lk(pa, pb, ca, psz=8, padding=pad)
@@ -81,7 +79,10 @@ def ncc_eval(device=None, wh=(320, 240), n_points=150):
     h = ncc.mosse_filter(t[:, None], gsigma=2.0, beta=0.1)
     resp = ncc.mosse_response(h, q[:, None])
     off_m, _ = ncc.peak_subpixel(resp)
-    return dict(zip(LABELS, (epe(lk), epe(ca + off), epe(ca + off_m))))
+    uv = {k: e.cpu().numpy().astype(np.float64)
+          for k, e in zip(LABELS, (lk, ca + off, ca + off_m))}
+    errs = {k: np.linalg.norm(e - uv_b, axis=1) for k, e in uv.items()}
+    return (errs, uv) if with_uv else errs
 
 
 def summary(err):

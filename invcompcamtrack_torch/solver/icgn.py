@@ -11,7 +11,8 @@ resample + residual + projection (K2, ``ops/icgn_iter.py``) gives
 contracted with the Jacobian rows and ``rhs = jx gx + jy gy``; the
 ``(N, 6, psz*psz)`` steepest-descent tensor never exists.
 
-The non-fused paths (any other even ``psz``, or ``window_cache=False``)
+The non-fused paths (any other even ``psz``, ``window_cache=False``, or
+a float64 tracker)
 are the JAX module's: ``extract_patches_grad`` (K6) gives the reference
 patches, the steepest-descent tensor ``(..., N, 6, psz*psz)`` is built
 and ``H = sd sd^T``; the query patches come per iteration from windows
@@ -96,10 +97,11 @@ def cam_level_padding(cfg: ICGNParams) -> int:
     return cfg.psz
 
 
-def fused_supported(psz: int, win: int) -> bool:
-    """K1 and K2 are built for one patch and window side (the rule of the
-    JAX package's ``icgn_iter_pallas.supported``)."""
-    return psz == _build.PSZ and win == _build.WIN
+def fused_supported(psz: int, win: int, dtype: torch.dtype = torch.float32) -> bool:
+    """K1 and K2 are built for one patch and window side and compute in
+    float32 (the rule of the JAX package's ``icgn_iter_pallas.supported``):
+    a float64 tracker takes the non-fused path in float64, as JAX's does."""
+    return psz == _build.PSZ and win == _build.WIN and dtype == torch.float32
 
 
 def _outer_sum(a: torch.Tensor, b: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
@@ -227,8 +229,8 @@ def _track_one_scale(level_ref, level_new, Xn, Xc_ref, uv_ref, p, cam_level,
 
     origins = (_entry_origins(p, Xn, valid_ref, cam_level, cfg)
                if cfg.window_cache else None)
-    scale = (_fused_scale if cfg.window_cache and fused_supported(cfg.psz, cfg.window_size)
-             else _sd_scale)
+    scale = (_fused_scale if cfg.window_cache
+             and fused_supported(cfg.psz, cfg.window_size, uv_ref.dtype) else _sd_scale)
     H, rhs_of = scale(level_ref, level_new, uv_ref, Xc_safe, valid_ref, origins,
                       cam_level, cfg)
 

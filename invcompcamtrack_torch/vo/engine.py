@@ -930,7 +930,10 @@ class VisualOdometry:
     def _tensor(self, a) -> torch.Tensor:
         if isinstance(a, torch.Tensor):
             return a.to(device=self.device, dtype=self.dtype)
-        return torch.as_tensor(np.asarray(a, np.float32), device=self.device).to(self.dtype)
+        # in the engine's own precision, as jnp.asarray(a, dtype): a float64
+        # engine keeps a float64 pose whole
+        host = np.float64 if self.dtype == torch.float64 else np.float32
+        return torch.as_tensor(np.asarray(a, host), device=self.device).to(self.dtype)
 
     def _pyr(self, img) -> Pyramid:
         cfgt = self.cfg.tracker

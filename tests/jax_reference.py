@@ -9,6 +9,7 @@ repository root:
     JAX_PLATFORMS=cpu python tests/jax_reference.py tripwire [--x64]
     JAX_PLATFORMS=cpu python tests/jax_reference.py log plane-sweep --modes full [--float64] [--port]
     JAX_PLATFORMS=cpu python tests/jax_reference.py suite forward [--float64] [--port]
+    ... [--frames N] [--poses FILE.npy]
     JAX_PLATFORMS=cpu python tests/jax_reference.py degraded --x64 [--float64] [--port]
 
 ``tripwire`` is ``bench.py::bench_noisymap_gain``'s workload (both
@@ -21,8 +22,8 @@ examples/run_flow_epe.py --out OTHER.md``).  Without ``--x64`` the JAX
 accuracy log's ``_exp`` falls back to float32, as when its script runs
 as a script; the twin's is float64, so compare frame by frame with
 ``--x64`` (a float32-sensitive sequence such as ``degraded`` parts
-otherwise).  Nothing is written; the JAX examples' persistent
-compilation cache stays off.
+otherwise).  Nothing is written but the ``--poses`` file; the JAX
+examples' persistent compilation cache stays off.
 """
 
 import argparse
@@ -40,6 +41,14 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 FIXEDMAP = {"min_parallax_px": 1e9, "max_obs_fail": 10 ** 6, "reobs_gate_px": 48.0,
             "ba_obs_gate_px": 48.0}
+
+
+class _Seed(int):
+    """The twin's seed, kept whole by the JAX suite's ``hash(profile) %
+    2**31``: forward's ``zlib.crc32`` is over 2**31."""
+
+    def __mod__(self, m):
+        return int(self)
 
 
 def _load(name):
@@ -73,7 +82,7 @@ def modules(args):
     sys.path.insert(0, str(ROOT / "examples"))
     acc, rob, suite = (_load(n) for n in names)
     if not args.port:
-        suite.hash = lambda p: zlib.crc32(p.encode())  # the twin's seed
+        suite.hash = lambda p: _Seed(zlib.crc32(p.encode()))  # the twin's seed
     if args.float64:
         acc.VisualOdometry = functools.partial(acc.VisualOdometry, dtype=dtype)
         if args.port:
@@ -93,6 +102,11 @@ def main():
     ap.add_argument("--float64", action="store_true")
     ap.add_argument("--x64", action="store_true", help="JAX x64 (float64 poses)")
     ap.add_argument("--port", action="store_true", help="the twin, on the CPU")
+    ap.add_argument("--frames", type=int, default=None,
+                    help="log/suite: the first FRAMES frames of the sequence")
+    ap.add_argument("--poses", default=None,
+                    help="save the estimated per-frame poses (log: (n, 6); suite: the "
+                         "(n, 3) centres) to this .npy file")
     args = ap.parse_args()
     acc, rob, suite = modules(args)
     synthetic = acc.synthetic
@@ -100,7 +114,18 @@ def main():
     t0 = time.perf_counter()
 
     if args.case == "suite":
-        r = suite.run_sequence(args.name, 200, False, **kw)
+        if args.poses:  # the trajectory that run_sequence hands to ate_rmse
+            if args.port:
+                ate = suite.ate_rmse
+                suite.ate_rmse = lambda t, g, **k: (np.save(args.poses, np.asarray(t)),
+                                                    ate(t, g, **k))[1]
+            else:
+                import invcompcamtrack_tpu.vo.metrics as jmet
+
+                ate = jmet.ate_rmse
+                jmet.ate_rmse = lambda t, g, **k: (np.save(args.poses, np.asarray(t)),
+                                                   ate(t, g, **k))[1]
+        r = suite.run_sequence(args.name, args.frames or 200, False, **kw)
         print(json.dumps({**r, "seconds": time.perf_counter() - t0}))
         return
 
@@ -140,17 +165,28 @@ def main():
         acc._centers = lambda p: (seen.append(np.asarray(p, np.float64)), centers(p))[1]
         r = acc.run_sequence("corridor-fwd", scene, render, sample, path, "hybrid", imgs=imgs,
                              cfg_overrides={"tracker": rob._tracker(True)}, **kw)
+        if args.poses:
+            np.save(args.poses, seen[0])
         print(json.dumps({"ate_rmse": r["ate_rmse"], "map_surface_rms": r["map_surface_rms"],
                           "poses": seen[0].tolist(), "seconds": time.perf_counter() - t0}))
         return
 
     name = "tripwire" if args.case == "tripwire" else args.name
     scene, render, sample, path, noise, ov, modes, trk = seqs[name]
+    path = path[:args.frames]  # the paths are the same up to any frame
     imgs = [render(scene, acc._exp(p)) for p in path]
+    seen = []
+    centers = acc._centers
+    acc._centers = lambda p: (seen.append(np.asarray(p, np.float64)), centers(p))[1]
+    poses = {}
     for mode in (args.modes or modes or "off,structure,full,hybrid").split(","):
+        seen.clear()
         r = acc.run_sequence(name, scene, render, sample, path, mode, imgs=imgs,
                              seed_noise=noise, cfg_overrides=ov, tracker=trk, **kw)
+        poses[mode] = seen[0]
         print(json.dumps({**r, "seconds": time.perf_counter() - t0}), flush=True)
+    if args.poses:
+        np.save(args.poses, np.stack(list(poses.values())))
 
 
 if __name__ == "__main__":

@@ -273,6 +273,28 @@ def test_bootstrap_from_images_self_initialization():
     assert ate < 0.05 * extent + 0.01, (ate, extent)
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_engine_takes_its_inputs_in_its_own_precision(ref, dtype):
+    """The bootstrap poses enter the engine as ``jnp.asarray(pose, dtype)``
+    takes them: a float64 engine keeps a float64 pose whole (it once
+    rounded it through float32 first, and the accuracy log's plane sweep
+    in float64 then parted from the JAX package's float64 engine from
+    its first tracked frame on), a float32 engine rounds it once."""
+    tr = ICGNParams(lv_f=2, lv_l=0, psz=8, maxiter=6)
+    scene = ref["scene"]
+    cam = CameraPyramid.create(scene.fc, scene.cc, scene.wh, tr.num_levels, tr.psz,
+                               device="cpu")
+    vo = engine.VisualOdometry(cam, scene.fc, scene.cc,
+                               engine.VOConfig(tracker=tr, **_cfg_kw()), device="cpu",
+                               dtype=dtype)
+    poses = np.asarray(ref["poses_gt"][:2], np.float64)
+    vo.bootstrap(ref["imgs"][0], ref["imgs"][1], poses[0], poses[1], ref["seeds"])
+    want = poses.astype(np.float32) if dtype == torch.float32 else poses
+    got = vo.state.kf_poses[:2].numpy()
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    assert np.array_equal(vo.state.cur_pose.numpy(), want[1])
+
+
 def test_engine_multi_device_options_raise_and_default_device():
     """The multi-device BA options: the three VOConfig fields with the JAX
     package's defaults, and a BA mesh that is not a DeviceMesh is refused

@@ -36,6 +36,7 @@ from tests.oracles import icgn_np
 from tests.torch_helpers import make_pair, t32
 
 POSE_ATOL = 2e-5
+PORT_VS_JAX_F64 = 1e-12
 N = 32
 
 
@@ -95,6 +96,30 @@ def test_track_pose_matches_jax(scene, donorm, dopatchnorm):
     H_j = np.asarray(aux_j.hessian)
     scale = np.abs(H_j).max(axis=(-2, -1), keepdims=True)
     assert np.all(np.abs(aux.hessian.numpy() - H_j) <= 1e-5 * scale)
+
+
+@pytest.mark.parametrize("dopatchnorm", [False, True])
+def test_track_pose_in_float64_matches_jax_in_float64(scene, dopatchnorm):
+    """A float64 tracker stays in float64 as JAX's does: K1 and K2 are
+    float32, so both take the non-fused path there (the fused one once
+    put float32 rounding into the port's float64 engine, and a 1e-12
+    change of its input moved its first tracked pose by 4e-9, JAX's by
+    1e-11).  Measured on a CPU: 3.9e-15 (1.7e-8 through the fused path)."""
+    cfg = ICGNParams(lv_f=1, lv_l=0, psz=8, maxiter=10, normdp_ratio=0.01,
+                     dopatchnorm=dopatchnorm)
+    cam_j = JCam.create(scene["sc"].fc, scene["sc"].cc, scene["sc"].wh, 2, 8)
+    f64 = {k: np.asarray(scene[k], np.float64) for k in ("img_ref", "img_new", "Xb", "p0")}
+    p_j = np.asarray(jicgn.track_pose(
+        jbuild(jnp.asarray(f64["img_ref"]), 2, 8), jbuild(jnp.asarray(f64["img_new"]), 2, 8),
+        jnp.asarray(f64["Xb"]), jnp.asarray(f64["p0"]), cam_j, cfg,
+        point_mask=jnp.asarray(scene["mask"])))
+    t64 = {k: torch.from_numpy(v) for k, v in f64.items()}
+    p = icgn.track_pose(build_pyramid(t64["img_ref"], 2, 8), build_pyramid(t64["img_new"], 2, 8),
+                        t64["Xb"], t64["p0"], convert.camera_from_numpy(cam_j, "cpu"), cfg,
+                        point_mask=torch.as_tensor(scene["mask"]))
+    assert p.dtype == torch.float64 and p_j.dtype == np.float64
+    assert not icgn.fused_supported(8, cfg.window_size, torch.float64)
+    np.testing.assert_allclose(p.numpy(), p_j, rtol=0, atol=PORT_VS_JAX_F64)
 
 
 def test_track_pose_batch_matches_jax(scene):
