@@ -278,9 +278,9 @@ OPS_SHARE = 0.05
 # coefficient space, distributed PCG) than the one-device joint solve
 # (group-space odometry factors, a dense Schur solve), and the JAX
 # package's temporal engine parts from its one-device engine by 0.0471 in
-# float64 and 0.0071 in float32 on tests/test_torch_ba_distributed.py's
-# sequence; the limit is tests/test_torch_ba_distributed.py's
-# TEMPORAL_ENGINE_GAP, 1.5 x the float64 figure.  10c: path 7's streams, PIPE_WINDOWS keyframe
+# float64 and 0.0071 in float32 on
+# tests/test_torch_ba_distributed_engine.py's sequence; the limit is that
+# file's TEMPORAL_ENGINE_GAP, 1.5 x the float64 figure.  10c: path 7's streams, PIPE_WINDOWS keyframe
 # steps each through the 4-stage VO pipeline on 4 gloo ranks, against
 # each stream's sequential engine.  10d: checkpointed_loop killed mid-run
 # on the card and resumed, RUNTIME_STEPS steps.  Each world is joined

@@ -298,7 +298,7 @@ def test_engine_takes_its_inputs_in_its_own_precision(ref, dtype):
 def test_engine_multi_device_options_raise_and_default_device():
     """The multi-device BA options: the three VOConfig fields with the JAX
     package's defaults, and a BA mesh that is not a DeviceMesh is refused
-    (the sharded engines themselves: tests/test_torch_ba_distributed.py)."""
+    (the sharded engines themselves: tests/test_torch_ba_distributed_engine.py)."""
     for f in ("ba_mesh_axis", "ba_temporal_axis", "ba_temporal_cg_iters"):
         assert getattr(engine.VOConfig(), f) == getattr(jeng.VOConfig(), f)
     scene = synthetic.make_scene(np.random.default_rng(0), wh=(64, 48), fc=(60.0, 60.0))
