@@ -11,11 +11,12 @@ per level (coarse -> fine):
     A = box([Ix^2, IxIy, Iy^2]); b = box([Ix It, Iy It])
     flow -= A^{-1} b   (closed-form 2x2, det-guarded)
 
-Everything is dense tensor work in PyTorch except the warp, which is
-one launch of the hand-written kernel K8 per iteration on a CUDA tensor
-and its plain version, ``warp_image``, on a CPU tensor.  The box sums
-are ``F.conv2d`` with a ones kernel and zero padding (TF32 off, set by
-the package).  ``lax.fori_loop`` becomes a fixed Python loop.
+An iteration is two launches on a CUDA tensor: the warp, K8
+(``ops/warp.py``), then the rest of the iteration, ``lk_step``
+(``ops/lk_step.py``: gradients, the five box sums, the guarded solve and
+the update in one kernel).  On a CPU tensor both take their plain
+versions, whose box sums are ``F.conv2d`` with a ones kernel and zero
+padding.  ``lax.fori_loop`` becomes a fixed Python loop.
 
 Outputs interoperate with the flow-transfer track table
 (``match/track.py``), the EPE evaluation and the colour-wheel viz.
@@ -26,39 +27,17 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from invcompcamtrack_torch.image.pyramid import Pyramid, central_gradients
-from invcompcamtrack_torch.ops import warp
+from invcompcamtrack_torch.image.pyramid import Pyramid
+from invcompcamtrack_torch.ops import lk_step, warp
 
 # Backward warp out(x) = img(x + flow(x)), bilinear, edge-clamped: the
 # exact per-pixel bilinear, K8's plain version.
 warp_image = warp.warp_image_plain
 
 
-def _box(x: torch.Tensor, radius: int) -> torch.Tensor:
-    k = 2 * radius + 1
-    kernel = torch.ones((1, 1, k, k), dtype=x.dtype, device=x.device)
-    return F.conv2d(x[None, None], kernel, padding=radius)[0, 0]
-
-
 def _lk_refine(I0, I1, flow, iters: int, radius: int, min_det: float):
-    Ix, Iy = central_gradients(I0)
-    Ix = Ix * 0.5  # central_gradients returns unscaled I[x+1]-I[x-1]
-    Iy = Iy * 0.5
-    a11 = _box(Ix * Ix, radius)
-    a12 = _box(Ix * Iy, radius)
-    a22 = _box(Iy * Iy, radius)
-    det = a11 * a22 - a12 * a12
-    good = det > min_det
-    det_safe = torch.where(good, det, torch.ones_like(det))
-
     for _ in range(iters):
-        It = warp.warp_image(I1, flow) - I0
-        b1 = _box(Ix * It, radius)
-        b2 = _box(Iy * It, radius)
-        du = (a22 * b1 - a12 * b2) / det_safe
-        dv = (a11 * b2 - a12 * b1) / det_safe
-        upd = torch.stack([du, dv], dim=-1)
-        flow = flow - torch.where(good[..., None], upd, torch.zeros_like(upd))
+        flow = lk_step.lk_step(I0, warp.warp_image(I1, flow), flow, radius, min_det)
     return flow
 
 

@@ -39,6 +39,7 @@ COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # (P: the planes in a (P, Hp, Wp) stack, whose M points fall in P equal
 # consecutive groups, one per plane)
 _SIGNATURES = {
@@ -51,6 +52,8 @@ _SIGNATURES = {
                              _P],
     # img, flow, out, H, W, stream
     "icgn_warp_image": [_P, _P, _P, _I, _I, _P],
+    # I0, I1w, flow (updated in place), H, W, radius, min_det, stream
+    "icgn_lk_step": [_P, _P, _P, _I, _I, _I, _F, _P],
     # img, P, Hp, Wp, centers, out, M, psz, pad, stream
     "icgn_gather_patches": [_P, _I, _I, _I, _P, _P, _I, _I, _I, _P],
     # img, P, Hp, Wp, centers, p_img, p_dx, p_dy, M, psz, pad, stream

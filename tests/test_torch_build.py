@@ -6,8 +6,8 @@ A stale entry in ``_build._SIGNATURES`` makes ctypes pass a truncated
 pointer or a wrong integer, and only a run on the card would show it.  So
 every ``extern "C" int icgn_...(...)`` of ``csrc/*.cu`` is parsed here and
 held to the table: the same names, the same number of arguments, each
-pointer (``void*`` included) declared ``c_void_p`` and each ``int``
-``c_int``.  Then the wrappers of the kernels that take the centres (K1,
+pointer (``void*`` included) declared ``c_void_p``, each ``int``
+``c_int`` and each ``float`` ``c_float``.  Then the wrappers of the kernels that take the centres (K1,
 K4, K5, K6, K9) run their card path on CPU tensors against a stand-in
 library that records the call: what they pass, and that they prepare no
 indices or weights (on the card such a call is one device op); K1, K5,
@@ -15,6 +15,8 @@ K6, K7 and K9 also on a stack of P planes, the multi-stream engine's
 call, which passes P and the stack's pointer.  K7 passes the window
 origins as they are (the kernel clamps them), and the clamping rule it
 repeats is held to the plain path's at origins beyond every border.
+``lk_step`` passes its three tensors as they are and runs no torch op:
+the kernel updates the flow in place.
 """
 
 import ctypes
@@ -26,7 +28,7 @@ import torch
 
 from invcompcamtrack_torch.image import taps
 from invcompcamtrack_torch.image.pyramid import build_pyramid
-from invcompcamtrack_torch.ops import _build, ncc3, patch_gather, patch_prefetch
+from invcompcamtrack_torch.ops import _build, lk_step, ncc3, patch_gather, patch_prefetch
 
 torch.set_num_threads(1)
 
@@ -60,8 +62,10 @@ def test_signature_table_matches_the_source(name):
     for arg, ctype in zip(args, types):
         if "*" in arg:
             assert ctype is ctypes.c_void_p, f"{name}: {arg} is a pointer"
+        elif arg.rsplit(" ", 1)[0] == "float":
+            assert ctype is ctypes.c_float, f"{name}: {arg} is a float"
         else:
-            assert arg.rsplit(" ", 1)[0] == "int", f"{name}: {arg} is neither int nor pointer"
+            assert arg.rsplit(" ", 1)[0] == "int", f"{name}: {arg} is neither int, float nor pointer"
             assert ctype is ctypes.c_int, f"{name}: {arg} is an int"
 
 
@@ -276,3 +280,29 @@ def test_k7_clamps_origins_beyond_the_plane_as_the_plain_path(side):
     np.testing.assert_array_equal(got.numpy(), want)
     one = patch_gather.gather_windows(torch.tensor(planes[1]), torch.tensor(o[1]), wh, ww)
     np.testing.assert_array_equal(one.numpy(), want[1])
+
+
+def test_lk_step_wrapper_passes_its_tensors_and_runs_no_torch_op(monkeypatch):
+    """The card path on CPU tensors against a stand-in library: one entry
+    call with the three tensors' pointers, the plane's size, the radius,
+    min_det as a float and the stream; no torch op before it, and the
+    flow it was given comes back; a radius beyond the halo is refused
+    before any call."""
+    lib = _Recorder()
+    monkeypatch.setattr(lk_step, "on_card", lambda name, t: True)
+    monkeypatch.setattr(_build, "load", lambda: lib)
+    monkeypatch.setattr(_build, "stream_ptr", lambda device: 1234)
+    monkeypatch.setattr(lk_step, "launches", {"lk_step": 0})
+    rng = np.random.default_rng(17)
+    I0, I1w = (torch.tensor(rng.uniform(0, 255, (22, 31)).astype(np.float32)) for _ in range(2))
+    flow = torch.tensor(rng.normal(size=(22, 31, 2)).astype(np.float32))
+    out, ran = _host_ops(lambda: lk_step.lk_step(I0, I1w, flow, 4, 1e-4))
+    assert out is flow and not ran, ran
+    (entry, args_c), = lib.calls
+    assert entry == "icgn_lk_step" and lk_step.launches["lk_step"] == 1
+    assert args_c == (I0.data_ptr(), I1w.data_ptr(), flow.data_ptr(), 22, 31, 4, 1e-4, 1234)
+    for a, ctype in zip(args_c, _build._SIGNATURES[entry]):
+        ctype(a)                                    # each converts as declared
+    with pytest.raises(ValueError, match="radius"):
+        lk_step.lk_step(I0, I1w, flow, lk_step.MAX_RADIUS + 1, 1e-4)
+    assert len(lib.calls) == 1

@@ -30,17 +30,27 @@ Tolerances (kernel vs plain version, same inputs, both on the card):
 - K8: the plain version's float operations in its order, through the
   non-contracting _rn intrinsics: bit-exact for every flow (smooth, a
   step, leaving the image, integer, infinite, NaN).
+- ``lk_step``: its float operations taken one tensor op at a time in its
+  order (``_lk_step_in_kernel_order``: each window summed directly, 2r+1
+  horizontal then 2r+1 vertical taps) give its floats bit for bit, NaN
+  and guarded pixels included.  Against the plain version only the box
+  sums' summation order differs, so both are held to the plain version
+  in float64: the kernel's largest gap at most 1.5 x the plain version's,
+  the two float32 versions within 2.5 x of it of each other (the
+  kernel's order against the CPU's plain version at these inputs: 0.27 x
+  to 0.91 x and 0.76 x to 1.27 x).
 - K9: K1's own device functions on the same floats: equal to K1 and to
   the plain version bit for bit; the tracker's poses with
   ``gather_prefetch=True`` equal those without it bit for bit.
 - K1, K5, K6, K7, K9 on a stack of planes (the multi-stream engine's
   call): the same operations per point, on the point's own plane: equal
   to the plain version and to one call per plane, bit for bit.
-- ``dense_flow_lk``, card vs CPU: measured 0.0 px at every pixel on an
-  H100 (torch 2.11, CUDA 12.8: the card's and the CPU's box convolutions
-  sum in one order); another convolution algorithm need not, so the
-  limits are those of two float32 runs of one flow: 1e-3 px on every
-  pixel, 1e-5 px at the median.  Descriptors: 2e-6 on unit vectors.
+- ``dense_flow_lk``, card vs CPU: the card's ``lk_step`` sums each
+  window in another order than the CPU's box convolution: measured
+  3.05e-5 px at the largest pixel and 8.3e-7 px at the median on an H100
+  (torch 2.11, CUDA 12.8); the limits are those of two float32 runs of
+  one flow: 1e-3 px on every pixel, 1e-5 px at the median.  The card
+  runs no box convolution.  Descriptors: 2e-6 on unit vectors.
 - K4: three butterfly sums per patch and one division: 2e-5 of
   sum|p_a p_b| / (n_a n_b), plus 8 MEAN_EPS (1/n_a + 1/n_b) for the
   other summation order of the patch mean (MEAN_EPS = 6.2e-5, 2 ulp of
@@ -55,15 +65,16 @@ Tolerances (kernel vs plain version, same inputs, both on the card):
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from invcompcamtrack_torch import ICGNParams, synthetic
 from invcompcamtrack_torch.cli import track_pair
 from invcompcamtrack_torch.core import lie
 from invcompcamtrack_torch.core.camera import CameraPyramid
 from invcompcamtrack_torch.image import taps
-from invcompcamtrack_torch.image.pyramid import PyramidLevel, build_pyramid
+from invcompcamtrack_torch.image.pyramid import PyramidLevel, build_pyramid, central_gradients
 from invcompcamtrack_torch.match import dense_flow, descriptors
-from invcompcamtrack_torch.ops import icgn_iter, ncc3, patch_gather, patch_prefetch, warp
+from invcompcamtrack_torch.ops import icgn_iter, lk_step, ncc3, patch_gather, patch_prefetch, warp
 from invcompcamtrack_torch.ops import window_sample as ws
 from invcompcamtrack_torch.solver import chain, icgn
 from invcompcamtrack_torch.utils import io
@@ -534,16 +545,25 @@ def test_tracker_with_gather_prefetch_on_card_equals_k1_run(pair, cuda_device):
     assert torch.equal(pre, base)
 
 
-def test_dense_flow_and_descriptors_on_card_match_cpu(pair, cuda_device):
+def test_dense_flow_and_descriptors_on_card_match_cpu(pair, cuda_device, monkeypatch):
     _, _, img_ref, img_new, _ = pair
     L, pad, iters = 3, 8, 4
+    plain_box = lk_step._box
+
+    def box_on_cpu_only(x, radius):
+        assert x.device.type == "cpu", "a box convolution ran on the card"
+        return plain_box(x, radius)
+
+    monkeypatch.setattr(lk_step, "_box", box_on_cpu_only)
     out = {}
     for dev in ("cpu", cuda_device):
-        n0 = warp.launches["warp_image"]
+        n0, n_lk = warp.launches["warp_image"], lk_step.launches["lk_step"]
         p0 = build_pyramid(t32(img_ref, dev), L, pad)
         p1 = build_pyramid(t32(img_new, dev), L, pad)
         out[str(dev)] = dense_flow.dense_flow_lk(p0, p1, pad, iters=iters).cpu()
-        assert warp.launches["warp_image"] - n0 == (0 if str(dev) == "cpu" else L * iters)
+        want = 0 if str(dev) == "cpu" else L * iters
+        assert warp.launches["warp_image"] - n0 == want
+        assert lk_step.launches["lk_step"] - n_lk == want
     gap = (out["cuda"] - out["cpu"]).abs()
     assert float(gap.max()) <= 1e-3 and float(gap.median()) <= 1e-5
     rng = np.random.default_rng(15)
@@ -557,6 +577,130 @@ def test_dense_flow_and_descriptors_on_card_match_cpu(pair, cuda_device):
     torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=0, atol=2e-6)
     idx, ok = descriptors.ratio_match(on_card, on_card.flip(0))
     assert torch.equal(idx.cpu(), torch.arange(63, -1, -1))
+
+
+LK_MIN_DET = 1e-4
+
+
+def _lk_step_in_kernel_order(I0, I1w, flow, radius, min_det):
+    """csrc/lk_step.cu's float operations in its order, one tensor op at a
+    time: each window summed directly, 2r+1 horizontal taps left to right
+    over every zero-padded row, then 2r+1 vertical taps top to bottom."""
+    H, W = I0.shape
+    Ix, Iy = central_gradients(I0)
+    Ix, Iy, It = (F.pad(t, (radius,) * 4) for t in (Ix * 0.5, Iy * 0.5, I1w - I0))
+
+    def box(p):
+        h = p[:, :W]
+        for j in range(1, 2 * radius + 1):
+            h = h + p[:, j:j + W]
+        v = h[:H]
+        for i in range(1, 2 * radius + 1):
+            v = v + h[i:i + H]
+        return v
+
+    a11, a12, a22, b1, b2 = (box(p) for p in (Ix * Ix, Ix * Iy, Iy * Iy, Ix * It, Iy * It))
+    det = a11 * a22 - a12 * a12
+    upd = torch.stack([(a22 * b1 - a12 * b2) / det, (a11 * b2 - a12 * b1) / det], -1)
+    return torch.where((det > min_det)[..., None], flow - upd, flow)
+
+
+def _lk_inputs(H, W, dev):
+    """A textured plane seen from two poses, a smooth flow of a few px,
+    and image 1 warped by it (K8)."""
+    rng = np.random.default_rng(17)
+    scene = synthetic.make_scene(rng, wh=(W, H))
+    G = [lie.se3_exp(torch.tensor(p, dtype=torch.float64)).numpy()
+         for p in (np.zeros(6), np.r_[rng.normal(size=3) * 0.02, rng.normal(size=3) * 0.01])]
+    I0, I1 = (t32(synthetic.render(scene, g), dev) for g in G)
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    flow = t32(np.stack([1.3 * np.sin(yy / 17.0) + 0.5, 1.1 * np.cos(xx / 13.0) - 0.3], -1), dev)
+    return I0, I1, flow
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+def _held_to_plain(got, I0, I1w, flow, radius):
+    """The kernel against the plain version (other summation order of the
+    box sums), both against the plain version in float64: the kernel's
+    largest gap to float64 at most 1.5 x the plain version's, and the two
+    float32 versions within 2.5 x the plain version's gap of each other.
+    NaN where the plain version gives NaN."""
+    plain = lk_step.lk_step_plain(I0, I1w, flow.clone(), radius, LK_MIN_DET)
+    f64 = lk_step.lk_step_plain(I0.double(), I1w.double(), flow.double(), radius, LK_MIN_DET)
+    assert torch.equal(got.isnan(), plain.isnan())
+    ok = ~plain.isnan()
+    err_k = float((got.double() - f64)[ok].abs().max())
+    err_p = float((plain.double() - f64)[ok].abs().max())
+    gap = float((got - plain)[ok].abs().max())
+    assert err_k <= 1.5 * err_p and gap <= 2.5 * err_p, (err_k, err_p, gap)
+
+
+@pytest.mark.parametrize("shape,radius", [((720, 1280), 4), ((720, 1280), 2),
+                                          ((45, 63), 4), ((45, 63), 2), ((22, 31), 4),
+                                          ((22, 31), 2), ((45, 63), lk_step.MAX_RADIUS)])
+def test_lk_step_kernel_matches_plain(cuda_device, shape, radius):
+    """One iteration: the kernel equals its operations taken one tensor op
+    at a time bit for bit, and is held to the plain version; radius 8
+    takes more than 48 KB of shared memory, the launcher's opt-in."""
+    I0, I1, flow = _lk_inputs(*shape, cuda_device)
+    I1w = warp.warp_image(I1, flow)
+    n0 = lk_step.launches["lk_step"]
+    out = flow.clone()
+    got = lk_step.lk_step(I0, I1w, out, radius, LK_MIN_DET)
+    torch.cuda.synchronize()
+    assert got is out and lk_step.launches["lk_step"] == n0 + 1
+    assert torch.equal(_bits(got), _bits(_lk_step_in_kernel_order(I0, I1w, flow, radius,
+                                                                   LK_MIN_DET)))
+    assert bool(torch.isfinite(got).all()) and not torch.equal(got, flow)
+    _held_to_plain(got, I0, I1w, flow, radius)
+
+
+def test_lk_step_kernel_keeps_guarded_pixels_and_follows_nan(cuda_device):
+    """A flat image: every pixel fails the guard and keeps its flow bit for
+    bit, NaN, infinite and -0.0 included.  A flow off the image on every
+    side with one NaN pixel: the kernel equals its operations bit for bit,
+    has NaN where the plain version has (the NaN pixel's window), and is
+    held to the plain version elsewhere."""
+    H, W = 45, 63
+    I0, I1, flow = _lk_inputs(H, W, cuda_device)
+    flow[:6] -= 40.0
+    flow[-6:] += 55.0
+    flow[:, :5, 0] -= 300.0
+    flow[:, -5:, 0] += 1e6
+    flow[20, 30, 0] = float("nan")
+    flat = torch.full((H, W), 7.0, device=cuda_device)
+    odd = flow.clone()
+    odd[3, 4, 1] = -float("inf")
+    odd[5, 6] = -0.0
+    got = lk_step.lk_step(flat, flat + 1.0, odd.clone(), 4, LK_MIN_DET)
+    assert torch.equal(_bits(got), _bits(odd))
+    I1w = warp.warp_image(I1, flow)
+    got = lk_step.lk_step(I0, I1w, flow.clone(), 4, LK_MIN_DET)
+    assert torch.equal(_bits(got), _bits(_lk_step_in_kernel_order(I0, I1w, flow, 4,
+                                                                   LK_MIN_DET)))
+    assert int(got[..., 0].isnan().sum()) == 81
+    _held_to_plain(got, I0, I1w, flow, 4)
+
+
+def test_lk_step_rejects_what_it_does_not_take(cuda_device):
+    I0, I1, flow = _lk_inputs(22, 31, cuda_device)
+    for radius in (lk_step.MAX_RADIUS + 1, -1, 4.0):
+        with pytest.raises(ValueError, match="radius"):
+            lk_step.lk_step(I0, I1, flow, radius, LK_MIN_DET)
+    with pytest.raises(ValueError, match="float32"):
+        lk_step.lk_step(I0.double(), I1.double(), flow.double(), 4, LK_MIN_DET)
+    with pytest.raises(ValueError, match="contiguous"):
+        lk_step.lk_step(I0, I1, flow.transpose(0, 1).contiguous().transpose(0, 1), 4,
+                        LK_MIN_DET)
+    with pytest.raises(ValueError, match="I1w must be"):
+        lk_step.lk_step(I0, I1, flow[:, :-1], 4, LK_MIN_DET)
+    with pytest.raises(ValueError, match="at least 2x2"):
+        lk_step.lk_step(I0[:1], I1[:1], flow[:1], 4, LK_MIN_DET)
+    with pytest.raises(ValueError, match="must be on"):
+        lk_step.lk_step(I0, I1, flow.cpu(), 4, LK_MIN_DET)
 
 
 def test_vo_engine_on_card_matches_cpu(cuda_device):
