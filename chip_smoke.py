@@ -22,12 +22,12 @@ it and read just after:
    (K1 x 5, K2 x 50) and psz 4 (K6 x 5, K7 x 5);
 5. the optical-flow point tracker (the loop of
    ``examples/run_of_point_track.py``) on a 6-frame 1280x720 clip: 5-level
-   pyramids, dense LK flow forward and backward (K8 x 40 per frame
-   pair), 1000 Shi-Tomasi corners, the track table; then sparse LK with
+   pyramids, dense LK flow forward and backward (K8 x 40 and lk_step x 40
+   per frame pair), 1000 Shi-Tomasi corners, the track table; then sparse LK with
    the forward/backward gate at those corners (K6 x 10 and K7 x 10, or
    K6 x 10 and K5 x 80 without the window cache), the flow-quality
    benchmark's ``evaluate_pair`` on one 640x480 pair at patch side 32
-   (K8 x 16, K5 x 4), and the tracker of path 1 with
+   (K8 x 16, lk_step x 16, K5 x 4), and the tracker of path 1 with
    ``gather_prefetch=True`` (K9 x 5, K1 x 0, K2 x 50), whose poses must
    equal path 1's bit for bit;
 6. the visual-odometry engine, one stream, at ``bench.py::bench_engine``'s
@@ -81,7 +81,7 @@ it and read just after:
    ``patch_norm`` route) on 20 frames of its corridor, card vs CPU and
    its ATE against the JAX package's, 11c the NCC evaluation twin (K5 x 2,
    K6 x 3, K7 x 3; the estimated positions) and 11d the flow-EPE twin on
-   one 640x480 pair (K8 x 16, K5 x 4), each card vs CPU.
+   one 640x480 pair (K8 x 16, lk_step x 16, K5 x 4), each card vs CPU.
 
 It checks that each path went through its kernels and solved its
 problem, compares the card with the port's CPU run, then times the paths
@@ -94,7 +94,10 @@ K9 are also held on a stack of 4 planes, against their plain versions
 and against 4 calls on one plane each; K7 also at every square side it
 is compiled for and at sides given at run time, with origins beyond
 every border, and timed at 12x12 and 16x16 windows and at the engine's
-512 points.
+512 points.  ``lk_step``, a kernel of the port with no TPU counterpart
+(one dense LK iteration), is held at 1280x720 and at 45x80, radius 4 and
+2, to its plain version run on the CPU, bit for bit, and timed at
+1280x720 beside its bound.
 
 It imports no JAX.  It exits non-zero, and prints no result, when no
 CUDA card is present, when the package is missing, or when any phase
@@ -145,15 +148,20 @@ EDGE_CENTERS = ([[k + d, 0.5 * k + d] for k in (0.0, 1.0, 7.0, 300.0, 1279.0)
 # K1's device functions on the same floats: equal to K1 bit for bit.
 WARP_TOL = 0.0
 PREFETCH_TOL = 0.0
-# Dense LK flow, card vs the port's CPU run of one 1280x720 pair: the box
-# convolutions sum 81 products, and a pixel whose 2x2 determinant is small
-# amplifies a last-bit difference through five levels of four iterations.
-# Measured on an H100 (torch 2.11, CUDA 12.8): 0.0 at every pixel, the
-# card's and the CPU's convolutions summing in one order; another cuDNN
-# algorithm need not, so the limits are those of two float32 runs of the
-# same flow (the CPU tests measure 1e-5 px between the port and the JAX
-# package): the median pixel within FLOW_MEDIAN_TOL px, 99.9 % of the
-# pixels within FLOW_TOL px.
+# lk_step (one dense LK iteration) performs the plain version's float
+# operations through the _rn intrinsics and sums each window in the box
+# convolution's order: equal to the plain version run on the CPU bit for
+# bit, NaN at the same pixels (their bits are the card's and the CPU's).
+LK_MIN_DET = 1e-4     # dense_flow_lk's default
+# Dense LK flow, card vs the port's CPU run of one 1280x720 pair: the card's
+# lk_step sums each window in the CPU's convolution order, so expected
+# 0.0 at every pixel.  Another order parts the two where LK has not
+# converged: a pixel there amplifies a last-bit difference through five
+# levels of four iterations (a separable window sum moved this clip's flow
+# by up to 0.72 px, with 99.9 % of the pixels within 1.6e-3 px).  The
+# limits are those of two float32 runs of the same flow (the CPU tests
+# measure 1e-5 px between the port and the JAX package): the median pixel
+# within FLOW_MEDIAN_TOL px, 99.9 % of the pixels within FLOW_TOL px.
 FLOW_TOL = 1e-3
 FLOW_MEDIAN_TOL = 1e-5
 # The point tracker's checks: the forward flow's median endpoint error
@@ -1223,9 +1231,10 @@ def _md_init(rank, n, backend, init_method):
 
 
 def _md_counts():
-    """The nine kernels' launch counts in this process (main's
+    """The ten kernels' launch counts in this process (main's
     read_counts)."""
-    from invcompcamtrack_torch.ops import icgn_iter, ncc3, patch_gather, patch_prefetch, warp
+    from invcompcamtrack_torch.ops import (icgn_iter, lk_step, ncc3, patch_gather,
+                                           patch_prefetch, warp)
 
     return {"K1": patch_gather.launches["gather_ref_grad_windows"],
             "K2": icgn_iter.launches["project"], "K3": icgn_iter.launches["pdiff"],
@@ -1234,14 +1243,16 @@ def _md_counts():
             "K6": patch_gather.launches["gather_patches_grad"],
             "K7": patch_gather.launches["gather_windows"],
             "K8": warp.launches["warp_image"],
-            "K9": patch_prefetch.launches["gather_ref_grad_windows_prefetch"]}
+            "K9": patch_prefetch.launches["gather_ref_grad_windows_prefetch"],
+            "lk_step": lk_step.launches["lk_step"]}
 
 
 def _md_reset():
-    from invcompcamtrack_torch.ops import icgn_iter, ncc3, patch_gather, patch_prefetch, warp
+    from invcompcamtrack_torch.ops import (icgn_iter, lk_step, ncc3, patch_gather,
+                                           patch_prefetch, warp)
 
     reset(patch_gather.launches, icgn_iter.launches, ncc3.launches, warp.launches,
-          patch_prefetch.launches)
+          patch_prefetch.launches, lk_step.launches)
 
 
 def _md_engine_cfg(**kw):
@@ -1558,7 +1569,8 @@ def examples_phase(torch, dev, card, all_counts, read_counts, expect_counts):
     agg_card, _ = fe.flow_epe(1)
     torch.cuda.synchronize()
     fe_launches = read_counts()
-    expect_counts("11d flow EPE, one pair", fe_launches, {"K8": 4 * 4, "K5": 4})
+    expect_counts("11d flow EPE, one pair", fe_launches,
+                  {"K8": 4 * 4, "lk_step": 4 * 4, "K5": 4})
     agg_cpu, _ = fe.flow_epe(1, "cpu")
     fe_gap = max(abs(agg_card[m][b] - agg_cpu[m][b]) for m in agg_card for b in agg_card[m])
     print(f"[{card}] 11d flow EPE, one 640x480 pair: card " + " | ".join(fe.summary_lines(agg_card))
@@ -1821,7 +1833,7 @@ def main() -> None:
     from invcompcamtrack_torch.device import card_line, default_device
     from invcompcamtrack_torch.image.pyramid import PyramidLevel, build_pyramid
     from invcompcamtrack_torch.match import dense_flow, features, flow_bench, lk, track
-    from invcompcamtrack_torch.ops import (_build, icgn_iter, ncc3, patch_gather,
+    from invcompcamtrack_torch.ops import (_build, icgn_iter, lk_step, ncc3, patch_gather,
                                            patch_prefetch, warp)
     from invcompcamtrack_torch.ops import window_sample as ws
     from invcompcamtrack_torch.solver import chain
@@ -2223,9 +2235,47 @@ def main() -> None:
     print(f"K8 vs plain: 720x1280 and {Hs}x{Ws}, smooth / step / leaving the image / "
           f"integer / non-finite flow, max abs err {k8_err} (tol {WARP_TOL})")
 
+    # ---- phase 3d: lk_step vs its plain version run on the CPU, at
+    # 1280x720 and at the coarsest level's 45x80, radius 4 (every caller's)
+    # and 2, after K8 with a smooth flow, a flow that leaves the image on
+    # every side and non-finite flow: bit for bit, NaN at the same pixels;
+    # on a flat image every pixel fails the guard and keeps its flow
+    lk_cases, lk_step_err = [], 0.0
+    for s_lvl in (0, cfg.lv_f):
+        lk_I0 = pyr_ref[s_lvl].img[pad:-pad, pad:-pad].contiguous()
+        lk_I1 = pyr_new[s_lvl].img[pad:-pad, pad:-pad].contiguous()
+        Hs, Ws = lk_I0.shape
+        flows = test_flows(Hs, Ws)
+        for kind in ("smooth", "leaves", "nonfinite"):
+            fl = flows[kind]
+            lk_I1w = warp.warp_image(lk_I1, fl)
+            for radius in (4, 2):
+                what = f"lk_step {Hs}x{Ws} {kind} flow, radius {radius}"
+                n_lk = lk_step.launches["lk_step"]
+                got = lk_step.lk_step(lk_I0, lk_I1w, fl.clone(), radius, LK_MIN_DET).cpu()
+                check(lk_step.launches["lk_step"] == n_lk + 1, f"{what}: no launch counted")
+                want = lk_step.lk_step_plain(lk_I0.cpu(), lk_I1w.cpu(), fl.cpu(), radius,
+                                             LK_MIN_DET)
+                nan = torch.isnan(want)
+                check(torch.equal(torch.isnan(got), nan), f"{what}: NaN pixels differ")
+                check(bool(nan.any()) == (kind == "nonfinite"), f"{what}: unexpected NaN pixels")
+                err = float((got - want)[torch.isfinite(want)].abs().max())
+                check(torch.equal(got.view(torch.int32)[~nan], want.view(torch.int32)[~nan]),
+                      f"{what}: not the plain version's floats, max abs err {err}")
+                lk_step_err = max(lk_step_err, err)
+                check(not torch.equal(got, fl.cpu()), f"{what}: the flow did not move")
+                lk_cases.append(f"{Hs}x{Ws} {kind} r{radius}")
+        flat = torch.full_like(lk_I0, 7.0)
+        got = lk_step.lk_step(flat, flat + 1.0, flows["nonfinite"].clone(), 4, LK_MIN_DET)
+        check(torch.equal(got.view(torch.int32), flows["nonfinite"].view(torch.int32)),
+              f"lk_step {Hs}x{Ws} flat image: a pixel that fails the guard changed its flow")
+    torch.cuda.synchronize()
+    print(f"lk_step vs plain on the CPU: {', '.join(lk_cases)}, and a flat image: max abs "
+          f"err {lk_step_err} (tol 0.0), NaN at the same pixels")
+
     # ---- phase 4: main path 1, counts set to 0 just before it
     all_counts = (patch_gather.launches, icgn_iter.launches, ncc3.launches,
-                  warp.launches, patch_prefetch.launches)
+                  warp.launches, patch_prefetch.launches, lk_step.launches)
 
     def read_counts():
         return {"K1": patch_gather.launches["gather_ref_grad_windows"],
@@ -2235,7 +2285,8 @@ def main() -> None:
                 "K6": patch_gather.launches["gather_patches_grad"],
                 "K7": patch_gather.launches["gather_windows"],
                 "K8": warp.launches["warp_image"],
-                "K9": patch_prefetch.launches["gather_ref_grad_windows_prefetch"]}
+                "K9": patch_prefetch.launches["gather_ref_grad_windows_prefetch"],
+                "lk_step": lk_step.launches["lk_step"]}
 
     def expect_counts(path, got, want):
         print(f"{path} launches: {got}")
@@ -2528,7 +2579,7 @@ def main() -> None:
         torch.cuda.synchronize()
         pt_launches = read_counts()
         expect_counts(f"point tracker, frame pair {i}", pt_launches,
-                      {"K8": 2 * FL * f_iters})
+                      {"K8": 2 * FL * f_iters, "lk_step": 2 * FL * f_iters})
         check(tuple(flow_f.shape) == (Hc, Wc, 2) and bool(torch.isfinite(flow_f).all())
               and bool(torch.isfinite(flow_b).all()), f"frame pair {i}: bad flow")
         gt = flow_bench.plane_gt_flow(scene, clip_G[i], clip_G[i + 1])
@@ -2630,7 +2681,7 @@ def main() -> None:
     bench_row = flow_bench.evaluate_pair(scene_b, G_b[0], G_b[1], *imgs_b)
     torch.cuda.synchronize()
     expect_counts("flow benchmark (evaluate_pair, psz 32)", read_counts(),
-                  {"K8": 4 * 4, "K5": 4})
+                  {"K8": 4 * 4, "lk_step": 4 * 4, "K5": 4})
     bench_epe = {k: bench_row[k]["all"] for k in ("lk", "ncc", "mosse")}
     print(f"flow benchmark, one {wh_b[0]}x{wh_b[1]} pair, mean GT flow "
           f"{bench_row['gt_mag_mean']:.2f} px: EPE {bench_epe}")
@@ -2817,6 +2868,12 @@ def main() -> None:
     pt_dev_ms, pt_ops, pt_own = device_ms(torch, point_tracker_call, reps=1,
                                           what="the point tracker", top=8)
     k8_plane = clip_pyrs[1][0].img[fpad:-fpad, fpad:-fpad].contiguous()
+    # lk_step at the point tracker's level 0 after K8 with the forward flow;
+    # the flow it updates in place is its own (each call subtracts the same
+    # update: the work does not depend on the flow)
+    lk_I0 = clip_pyrs[0][0].img[fpad:-fpad, fpad:-fpad].contiguous()
+    lk_I1w = warp.warp_image(k8_plane, flow_01)
+    lk_flow, lk_flow_plain = flow_01.clone(), flow_01.clone()
 
     k1_args = (k1_in["level"], k1_in["qimg"], k1_in["uv"], k1_in["origins"], psz, pad, win)
     f32, b16 = k2_in[torch.float32], k2_in[torch.bfloat16]
@@ -2847,6 +2904,9 @@ def main() -> None:
                lambda: warp.warp_image_plain(k8_plane, flow_01)),
         "K9": (lambda: patch_prefetch.gather_ref_grad_windows_prefetch(*k1_args),
                lambda: patch_prefetch.gather_ref_grad_windows_prefetch_plain(*k1_args)),
+        "lk_step": (lambda: lk_step.lk_step(lk_I0, lk_I1w, lk_flow, 4, LK_MIN_DET),
+                    lambda: lk_step.lk_step_plain(lk_I0, lk_I1w, lk_flow_plain, 4,
+                                                  LK_MIN_DET)),
     }
     # "ms": the kernel's own time; "wrapper_ms" and "wrapper_ops": every
     # device op of one wrapper call (the kernel and any torch ops that
@@ -2863,8 +2923,9 @@ def main() -> None:
                     "wall_ms": cuda_ms(torch, kern, reps=5, warmup=1),
                     "plain_wall_ms": cuda_ms(torch, plain, reps=5, warmup=1)}
     # K1, K4, K5, K6 and K9 take the centres and K7 the window origins as
-    # they are: a call without the patch mean is one op
-    for k in ("K1", "K4", "K5", "K6", "K7", "K9"):
+    # they are: a call without the patch mean is one op; lk_step takes its
+    # three planes as they are
+    for k in ("K1", "K4", "K5", "K6", "K7", "K9", "lk_step"):
         check(times[k]["wrapper_ops"] == 1, f"{k}: a call is {times[k]['wrapper_ops']} "
               f"device ops, not 1")
 
@@ -3011,6 +3072,11 @@ def main() -> None:
         # operations per pixel (two adds, two floors and clamps, the weights
         # and the four-tap sum)
         "K8": bound(Hc * Wc * 16, Hc * Wc * 20),
+        # lk_step at radius 4: I0, I1w and the flow read, the flow written;
+        # per pixel 5 operations for the gradients and It, 5 products, 81 x 5
+        # additions in the window sums, 13 for the determinant, the solve
+        # and the update
+        "lk_step": bound(Hc * Wc * 24, Hc * Wc * (5 + 5 + 81 * 5 + 13)),
     }
     bounds["K9"] = bounds["K1"]
 
@@ -3099,19 +3165,23 @@ def main() -> None:
           "the port's kernels with K9, device ms per call: "
           + ", ".join(f"{k} {v:.4f}" for k, v in sorted(pre_own.items())))
     k8_share = pt_own.get("warp_image_kernel", 0.0) / pt_dev_ms
+    lk_ms = sum(v for k, v in pt_own.items() if "lk_step" in k)
     print(f"[{card}] point tracker, one {Wc}x{Hc} frame pair (flow both ways, corners, "
           f"table): wall {pt_ms:.3f} ms (CUDA events, median of 5) = "
           f"{1e3 / pt_ms:.2f} frame pairs/s; device busy {pt_dev_ms:.3f} ms in "
           f"{pt_ops:.0f} device ops ({pt_dev_ms / pt_ms:.1%} of the wall time); K8 "
           f"{pt_own.get('warp_image_kernel', 0.0):.4f} ms for its "
-          f"{pt_launches['K8']} launches ({k8_share:.1%} of the device time)")
+          f"{pt_launches['K8']} launches ({k8_share:.1%} of the device time), lk_step "
+          f"{lk_ms:.4f} ms for its {pt_launches['lk_step']} launches "
+          f"({lk_ms / pt_dev_ms:.1%})")
     shapes = {k: "psz 8, level 0" for k in pairs}
     shapes["K7"] = f"{win4}x{win4} windows, level 0 padded by 4"
     shapes["K8"] = f"{Wc}x{Hc}, the point tracker's forward flow"
+    shapes["lk_step"] = f"{Wc}x{Hc}, radius 4, after K8 with the point tracker's forward flow"
     for k, t in times.items():
         b_ms, b_by = bounds[k]
         lib = library_ms.get(k)
-        print(f"[{card}] {k} ({shapes[k]}{'' if k == 'K8' else f', {M} points'}): kernel {t['ms']:.4f} ms, wrapper's "
+        print(f"[{card}] {k} ({shapes[k]}{'' if k in ('K8', 'lk_step') else f', {M} points'}): kernel {t['ms']:.4f} ms, wrapper's "
               f"{t['wrapper_ops']:g} device ops {t['wrapper_ms']:.4f} ms (plain "
               f"{t['plain_ms']:.4f} ms; bound {b_ms:.4f} ms by {b_by}; library "
               f"{'none' if lib is None else f'{lib:.4f} ms'}); wall {t['wall_ms']:.4f} ms "
@@ -3128,14 +3198,14 @@ def main() -> None:
     def entry(name, source, replaces, launches_n, err_, key):
         b_ms, b_by = bounds[key]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches_n, "engine_launches": eng_launches[key[:2]],
-                "engine_streams_launches": str_launches[key[:2]],
-                "ransac_launches": r_launches[key[:2]],
-                "features_launches": small_launches["features"][key[:2]],
-                "stereo_launches": small_launches["stereo"][key[:2]],
-                "replay_launches": small_launches["replay"][key[:2]],
-                "multi_device_launches": {p: ([c[key[:2]] for c in v] if isinstance(v, list)
-                                              else v[key[:2]]) for p, v in md_launches.items()},
+                "launches": launches_n, "engine_launches": eng_launches[key],
+                "engine_streams_launches": str_launches[key],
+                "ransac_launches": r_launches[key],
+                "features_launches": small_launches["features"][key],
+                "stereo_launches": small_launches["stereo"][key],
+                "replay_launches": small_launches["replay"][key],
+                "multi_device_launches": {p: ([c[key] for c in v] if isinstance(v, list)
+                                              else v[key]) for p, v in md_launches.items()},
                 "max_abs_err": err_, **times[key],
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms.get(key),
                 "shape": shapes[key]}
@@ -3160,6 +3230,8 @@ def main() -> None:
               pt_launches["K8"], k8_err, "K8"),
         entry("K9 gather_ref_grad_windows_prefetch", src + "patch_prefetch.cu",
               tpu + "patch_prefetch.py:218", pre_launches["K9"], k9_err, "K9"),
+        entry("lk_step", src + "lk_step.cu", "none: a kernel of the port (the JAX package "
+              "leaves the LK iteration to XLA)", pt_launches["lk_step"], lk_step_err, "lk_step"),
     ]
     # K3 has no caller on the main paths (nor in the JAX package): it is
     # held against its plain version above and reported on its own line
@@ -3189,7 +3261,7 @@ def main() -> None:
     print(json.dumps({"point_tracker": {
         "card": card, "frame_pairs_per_s": 1e3 / pt_ms, "ms_per_frame_pair": pt_ms,
         "device_busy_ms": pt_dev_ms, "device_ops": pt_ops, "kernel_ms": pt_own,
-        "k8_share_of_device_time": k8_share, "launches": pt_launches,
+        "k8_share_of_device_time": k8_share, "lk_step_ms": lk_ms, "launches": pt_launches,
         "frame_pairs": track_rows, "flow_card_vs_cpu_median": float(flow_gap.median()),
         "flow_card_vs_cpu_p999": flow_gap_999, "flow_card_vs_cpu_max": float(flow_gap.max())}}))
     print(json.dumps({"sparse_lk": lk_out}))

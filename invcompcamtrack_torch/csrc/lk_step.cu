@@ -20,55 +20,64 @@
 // det > min_det, flow -= ((a22 b1 - a12 b2) / det, (a11 b2 - a12 b1) / det),
 // elsewhere the flow is not written at all and keeps its bits.
 //
-// What bounds it on an H100: bytes.  Done with every intermediate on
-// chip it reads I0, I1w and the flow and writes the flow: 24 bytes a
-// pixel.  Design: a block owns a 32x32 output tile.  It forms Ix, Iy, It
-// over the tile and its halo of r pixels in shared memory (the halo's
-// gradients read I0's neighbours through L1), sums the five products
-// horizontally for every halo row (2r+1 taps, left to right), then
-// vertically for every output pixel (2r+1 taps, top to bottom), solves
-// and writes.  A warp spans 32 neighbouring columns, so every shared
-// access is one row of 32 words and every flow access one 256-byte row.
-// The structure tensor is recomputed in every iteration: it costs shared
-// memory arithmetic and no device memory bytes, where storing it would
-// read 16 bytes a pixel back in every iteration.  The sums are direct,
-// not running sums, whose cancellation error would grow with the row.
-// Every product, sum and quotient goes through the non-contracting _rn
-// intrinsics, so the kernel equals the same operations in that order
-// taken one tensor op at a time (tests/test_torch_cuda.py).  Against the
-// plain version only the summation order of the box sums differs.
+// What bounds it on an H100: bytes, barely.  Done with every intermediate
+// on chip it reads I0, I1w and the flow and writes the flow: 24 bytes a
+// pixel, 6.6 us at 1280x720; its 428 float operations a pixel at radius 4
+// (5 x 81 of them additions) take 5.9 us at the float32 peak, which counts
+// an FMA as two.  Each window is summed in the plain version's order: its
+// box convolution (PyTorch's on the CPU, at radius 2, 4 and 8; cuDNN's,
+// which the eager port ran on the card, gave the same flows at radius 4)
+// starts each output at 0 and adds the window's (2r+1)^2 products one at
+// a time, row by row, left to right.  The kernel does the same, so it
+// gives the plain version's floats bit for bit, and the dense flow on the
+// card is the CPU's.  (A separable sum, 2r+1 horizontal then 2r+1
+// vertical taps, takes about a fifth of the additions but parts from the
+// plain version's floats: through five levels of four iterations the flow
+// of a pixel where LK has not converged then moved by up to 0.7 px.)
+//
+// Design: a block owns a 32x64 output tile.  It forms Ix, Iy, It over the
+// tile and its halo of R pixels in shared memory (the halo's gradients
+// read I0's neighbours through L1).  Each thread owns a column of 8
+// output pixels and keeps their 5 x 8 sums in registers.  It walks the
+// 8 + 2R shared rows those windows cover, top to bottom, and each row's
+// 2R+1 columns left to right, forms the five products of each position
+// once and adds them to every one of its sums whose window holds that
+// row.  Every sum so sees its own window row by row, left to right.  A
+// warp spans 32 neighbouring columns, so every shared access is one row
+// of 32 words and every flow access one 256-byte row.  The structure
+// tensor is recomputed in every iteration: it costs arithmetic and no
+// device memory bytes, where storing it would read 16 bytes a pixel back
+// in every iteration.  Every product, sum and quotient goes through the
+// non-contracting _rn intrinsics, as the plain version's tensor ops round
+// each one.  R is a template argument (0-8), so the walk is unrolled and
+// each sum's adds are fixed when the kernel is compiled.
 #include <cuda_runtime.h>
 
 namespace icgn {
 
 constexpr int kLkTileX = 32;       // output tile: one warp wide
-constexpr int kLkTileY = 32;
-constexpr int kLkThreadsY = 8;     // 32x8 threads, 4 output rows each
+constexpr int kLkThreadsY = 8;     // 32x8 threads
+constexpr int kLkRows = 8;         // output rows of one thread
+constexpr int kLkTileY = kLkThreadsY * kLkRows;
 constexpr int kLkThreads = kLkTileX * kLkThreadsY;
 constexpr int kLkMaxRadius = 8;    // the widest halo the launcher takes
 
-// Ix, Iy, It over the tile and halo, then 5 planes of horizontal sums
-__host__ __device__ constexpr int lk_smem_bytes(int r) {
-  return (3 * (kLkTileY + 2 * r) * (kLkTileX + 2 * r) +
-          5 * (kLkTileY + 2 * r) * kLkTileX) * (int)sizeof(float);
-}
-
+template <int R>
 __global__ void __launch_bounds__(kLkThreads)
 lk_step_kernel(const float* __restrict__ I0, const float* __restrict__ I1w,
-               float2* __restrict__ flow, int H, int W, int r, float min_det) {
-  extern __shared__ float smem[];
-  const int rw = kLkTileX + 2 * r, rh = kLkTileY + 2 * r;
-  const int n_region = rh * rw, n_h = rh * kLkTileX, taps = 2 * r + 1;
-  float* s_ix = smem;
-  float* s_iy = s_ix + n_region;
-  float* s_it = s_iy + n_region;
-  float* s_h = s_it + n_region;
+               float2* __restrict__ flow, int H, int W, float min_det) {
+  constexpr int kTaps = 2 * R + 1;
+  constexpr int kRw = kLkTileX + 2 * R, kRh = kLkTileY + 2 * R;
+  constexpr int kRegion = kRw * kRh;
+  // Ix, Iy, It over the tile and its halo: 46,080 bytes at R = 8
+  __shared__ float s_ix[kRegion], s_iy[kRegion], s_it[kRegion];
   const int tid = threadIdx.y * kLkTileX + threadIdx.x;
   const int tx0 = blockIdx.x * kLkTileX, ty0 = blockIdx.y * kLkTileY;
 
-  // 1. gradients and the temporal difference over tile and halo
-  for (int i = tid; i < n_region; i += kLkThreads) {
-    const int gy = ty0 - r + i / rw, gx = tx0 - r + i % rw;
+  // 1. gradients and the temporal difference over tile and halo; zero
+  // outside the image, as the convolution pads the products
+  for (int i = tid; i < kRegion; i += kLkThreads) {
+    const int gy = ty0 - R + i / kRw, gx = tx0 - R + i % kRw;
     float ix = 0.0f, iy = 0.0f, it = 0.0f;
     if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
       // reflect-101: the neighbour of the first column is the second
@@ -86,51 +95,48 @@ lk_step_kernel(const float* __restrict__ I0, const float* __restrict__ I1w,
   }
   __syncthreads();
 
-  // 2. horizontal sums of the five products, for every row of the halo
-  for (int i = tid; i < n_h; i += kLkThreads) {
-    const int at = (i / kLkTileX) * rw + i % kLkTileX;
-    float ix = s_ix[at], iy = s_iy[at], it = s_it[at];
-    float sxx = __fmul_rn(ix, ix), sxy = __fmul_rn(ix, iy), syy = __fmul_rn(iy, iy);
-    float sxt = __fmul_rn(ix, it), syt = __fmul_rn(iy, it);
-    for (int j = 1; j < taps; ++j) {
-      ix = s_ix[at + j];
-      iy = s_iy[at + j];
-      it = s_it[at + j];
-      sxx = __fadd_rn(sxx, __fmul_rn(ix, ix));
-      sxy = __fadd_rn(sxy, __fmul_rn(ix, iy));
-      syy = __fadd_rn(syy, __fmul_rn(iy, iy));
-      sxt = __fadd_rn(sxt, __fmul_rn(ix, it));
-      syt = __fadd_rn(syt, __fmul_rn(iy, it));
-    }
-    s_h[i] = sxx;
-    s_h[n_h + i] = sxy;
-    s_h[2 * n_h + i] = syy;
-    s_h[3 * n_h + i] = sxt;
-    s_h[4 * n_h + i] = syt;
-  }
-  __syncthreads();
-
-  // 3. vertical sums, the guarded 2x2 solve and the update
   const int gx = tx0 + threadIdx.x;
-  if (gx >= W) return;
-  for (int oy = threadIdx.y; oy < kLkTileY; oy += kLkThreadsY) {
-    const int gy = ty0 + oy;
-    if (gy >= H) break;
-    int at = oy * kLkTileX + threadIdx.x;
-    float a11 = s_h[at], a12 = s_h[n_h + at], a22 = s_h[2 * n_h + at];
-    float b1 = s_h[3 * n_h + at], b2 = s_h[4 * n_h + at];
-    for (int i = 1; i < taps; ++i) {
-      at += kLkTileX;
-      a11 = __fadd_rn(a11, s_h[at]);
-      a12 = __fadd_rn(a12, s_h[n_h + at]);
-      a22 = __fadd_rn(a22, s_h[2 * n_h + at]);
-      b1 = __fadd_rn(b1, s_h[3 * n_h + at]);
-      b2 = __fadd_rn(b2, s_h[4 * n_h + at]);
+  const int oy0 = threadIdx.y * kLkRows;   // the column's first row in the tile
+  if (gx >= W || ty0 + oy0 >= H) return;
+
+  // 2. the window sums of the column's 8 pixels: shared row oy0 + k holds
+  // row k - t of pixel t's window
+  float a11[kLkRows], a12[kLkRows], a22[kLkRows], b1[kLkRows], b2[kLkRows];
+#pragma unroll
+  for (int t = 0; t < kLkRows; ++t) a11[t] = a12[t] = a22[t] = b1[t] = b2[t] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kLkRows + 2 * R; ++k) {
+    const int at = (oy0 + k) * kRw + threadIdx.x;
+#pragma unroll
+    for (int j = 0; j < kTaps; ++j) {
+      const float ix = s_ix[at + j], iy = s_iy[at + j], it = s_it[at + j];
+      const float pxx = __fmul_rn(ix, ix), pxy = __fmul_rn(ix, iy);
+      const float pyy = __fmul_rn(iy, iy), pxt = __fmul_rn(ix, it);
+      const float pyt = __fmul_rn(iy, it);
+#pragma unroll
+      for (int t = 0; t < kLkRows; ++t) {
+        if (k - t >= 0 && k - t < kTaps) {   // resolved when compiled
+          a11[t] = __fadd_rn(a11[t], pxx);
+          a12[t] = __fadd_rn(a12[t], pxy);
+          a22[t] = __fadd_rn(a22[t], pyy);
+          b1[t] = __fadd_rn(b1[t], pxt);
+          b2[t] = __fadd_rn(b2[t], pyt);
+        }
+      }
     }
-    const float det = __fsub_rn(__fmul_rn(a11, a22), __fmul_rn(a12, a12));
+  }
+
+  // 3. the guarded 2x2 solve and the update
+#pragma unroll
+  for (int t = 0; t < kLkRows; ++t) {
+    const int gy = ty0 + oy0 + t;
+    if (gy >= H) break;
+    const float det = __fsub_rn(__fmul_rn(a11[t], a22[t]), __fmul_rn(a12[t], a12[t]));
     if (!(det > min_det)) continue;   // NaN fails the guard too
-    const float du = __fdiv_rn(__fsub_rn(__fmul_rn(a22, b1), __fmul_rn(a12, b2)), det);
-    const float dv = __fdiv_rn(__fsub_rn(__fmul_rn(a11, b2), __fmul_rn(a12, b1)), det);
+    const float du =
+        __fdiv_rn(__fsub_rn(__fmul_rn(a22[t], b1[t]), __fmul_rn(a12[t], b2[t])), det);
+    const float dv =
+        __fdiv_rn(__fsub_rn(__fmul_rn(a11[t], b2[t]), __fmul_rn(a12[t], b1[t])), det);
     float2* f = flow + (size_t)gy * W + gx;
     float2 v = *f;
     v.x = __fsub_rn(v.x, du);
@@ -139,24 +145,33 @@ lk_step_kernel(const float* __restrict__ I0, const float* __restrict__ I1w,
   }
 }
 
+template <int R>
+cudaError_t lk_step_launch(const float* I0, const float* I1w, float* flow, int H, int W,
+                           float min_det, cudaStream_t stream) {
+  const dim3 block(kLkTileX, kLkThreadsY);
+  const dim3 grid((W + kLkTileX - 1) / kLkTileX, (H + kLkTileY - 1) / kLkTileY);
+  lk_step_kernel<R><<<grid, block, 0, stream>>>(I0, I1w, reinterpret_cast<float2*>(flow),
+                                                H, W, min_det);
+  return cudaGetLastError();
+}
+
 }  // namespace icgn
 
 extern "C" int icgn_lk_step(const float* I0, const float* I1w, float* flow, int H,
                             int W, int radius, float min_det, void* stream) {
   if (H < 2 || W < 2 || radius < 0 || radius > icgn::kLkMaxRadius)
     return (int)cudaErrorInvalidValue;
-  const int smem = icgn::lk_smem_bytes(radius);
-  if (smem > 48 * 1024) {
-    // above 48 KB a block's dynamic shared memory needs the opt-in, which
-    // is per device: set it on every such launch
-    const cudaError_t err = cudaFuncSetAttribute(
-        icgn::lk_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (radius) {
+    case 0: return (int)icgn::lk_step_launch<0>(I0, I1w, flow, H, W, min_det, st);
+    case 1: return (int)icgn::lk_step_launch<1>(I0, I1w, flow, H, W, min_det, st);
+    case 2: return (int)icgn::lk_step_launch<2>(I0, I1w, flow, H, W, min_det, st);
+    case 3: return (int)icgn::lk_step_launch<3>(I0, I1w, flow, H, W, min_det, st);
+    case 4: return (int)icgn::lk_step_launch<4>(I0, I1w, flow, H, W, min_det, st);
+    case 5: return (int)icgn::lk_step_launch<5>(I0, I1w, flow, H, W, min_det, st);
+    case 6: return (int)icgn::lk_step_launch<6>(I0, I1w, flow, H, W, min_det, st);
+    case 7: return (int)icgn::lk_step_launch<7>(I0, I1w, flow, H, W, min_det, st);
+    case 8: return (int)icgn::lk_step_launch<8>(I0, I1w, flow, H, W, min_det, st);
+    default: return (int)cudaErrorInvalidValue;
   }
-  const dim3 block(icgn::kLkTileX, icgn::kLkThreadsY);
-  const dim3 grid((W + icgn::kLkTileX - 1) / icgn::kLkTileX,
-                  (H + icgn::kLkTileY - 1) / icgn::kLkTileY);
-  icgn::lk_step_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-      I0, I1w, reinterpret_cast<float2*>(flow), H, W, radius, min_det);
-  return (int)cudaGetLastError();
 }

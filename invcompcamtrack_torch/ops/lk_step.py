@@ -7,10 +7,12 @@ counterpart: the JAX package leaves this iteration to XLA.  ``lk_step``
 launches it on CUDA tensors and ``lk_step_plain`` on CPU tensors.  The
 plain version is the iteration as the eager port always ran it, box sums
 by ``F.conv2d`` with a ones kernel and zero padding, so iterating it
-gives the parent flows bit for bit.  The kernel takes the same float
+gives the eager loop's flows bit for bit.  The kernel takes the same float
 operations through the non-contracting ``_rn`` intrinsics and sums each
-window directly, 2r+1 horizontal taps then 2r+1 vertical taps; only that
-summation order differs from the plain version's convolution.
+window in the convolution's order, from 0, one product at a time, row by
+row, left to right: it equals the plain version run on the CPU bit for
+bit (at every radius but 1, whose 3x3 convolution the CPU sums in
+another order; no caller takes it).
 
 Both update ``flow`` in place and return it.  A pixel whose determinant
 fails the guard keeps its flow bit for bit.
@@ -60,30 +62,6 @@ def lk_step_plain(I0: torch.Tensor, I1w: torch.Tensor, flow: torch.Tensor,
     return flow.sub_(torch.where(good[..., None], upd, torch.zeros_like(upd)))
 
 
-def _refusal(I0, I1w, flow, radius) -> str | None:
-    """Why the kernel does not take these arguments, or None.  The
-    messages are formatted only for a refusal: the host paces the dense
-    flow, and a wrapper call that formats them costs about twice as much."""
-    shape = tuple(I0.shape)
-    if I1w.device != I0.device or flow.device != I0.device:
-        return f"I1w and flow must be on {I0.device}, got {I1w.device} and {flow.device}"
-    if not I0.dtype == I1w.dtype == flow.dtype == torch.float32:
-        return (f"I0, I1w and flow must be float32, got {I0.dtype}, {I1w.dtype} and "
-                f"{flow.dtype}")
-    if len(shape) != 2 or min(shape) < 2:
-        return f"I0 must be a 2-D plane of at least 2x2, got {shape}"
-    if tuple(I1w.shape) != shape or tuple(flow.shape) != shape + (2,):
-        return (f"I1w must be {shape} and flow {shape + (2,)}, got {tuple(I1w.shape)} "
-                f"and {tuple(flow.shape)}")
-    # flow is written in place as float2: it must be one aligned block
-    if not (I0.is_contiguous() and I1w.is_contiguous() and flow.is_contiguous()
-            and flow.data_ptr() % 8 == 0):
-        return "I0, I1w and flow must be contiguous, flow 8-byte aligned"
-    if not isinstance(radius, int) or not 0 <= radius <= MAX_RADIUS:
-        return f"radius must be an int in [0, {MAX_RADIUS}], got {radius!r}"
-    return None
-
-
 def lk_step(I0: torch.Tensor, I1w: torch.Tensor, flow: torch.Tensor,
             radius: int, min_det: float) -> torch.Tensor:
     """I0, I1w (H, W) f32, H, W >= 2; flow (H, W, 2) f32, updated in place
@@ -91,9 +69,22 @@ def lk_step(I0: torch.Tensor, I1w: torch.Tensor, flow: torch.Tensor,
     name = "lk_step"
     if not on_card(name, I0):
         return lk_step_plain(I0, I1w, flow, radius, min_det)
-    why = _refusal(I0, I1w, flow, radius)
-    require(name, why is None, why)
+    require(name, I1w.device == I0.device and flow.device == I0.device,
+            f"I1w and flow must be on {I0.device}, got {I1w.device} and {flow.device}")
+    require(name, I0.dtype == I1w.dtype == flow.dtype == torch.float32,
+            f"I0, I1w and flow must be float32, got {I0.dtype}, {I1w.dtype} and {flow.dtype}")
+    require(name, I0.dim() == 2 and min(I0.shape) >= 2,
+            f"I0 must be a 2-D plane of at least 2x2, got {tuple(I0.shape)}")
     H, W = I0.shape
+    require(name, tuple(I1w.shape) == (H, W) and tuple(flow.shape) == (H, W, 2),
+            f"I1w must be {(H, W)} and flow {(H, W, 2)}, got {tuple(I1w.shape)} and "
+            f"{tuple(flow.shape)}")
+    # flow is written in place as float2: it must be one aligned block
+    require(name, I0.is_contiguous() and I1w.is_contiguous() and flow.is_contiguous()
+            and flow.data_ptr() % 8 == 0,
+            "I0, I1w and flow must be contiguous, flow 8-byte aligned")
+    require(name, isinstance(radius, int) and 0 <= radius <= MAX_RADIUS,
+            f"radius must be an int in [0, {MAX_RADIUS}], got {radius!r}")
     lib = _build.load()
     code = lib.icgn_lk_step(I0.data_ptr(), I1w.data_ptr(), flow.data_ptr(), H, W,
                             radius, float(min_det), _build.stream_ptr(I0.device))

@@ -2,7 +2,9 @@
 which ``match/dense_flow.py`` iterates on a CPU tensor, against a frozen
 copy of the eager loop it replaced, bit for bit; the wrapper takes the
 plain version on a CPU tensor and launches nothing.  The kernel is held
-to the plain version on the card (``tests/test_torch_cuda.py``).
+to the plain version on the card (``tests/test_torch_cuda.py`` and
+``chip_smoke.py`` phase 3d); the kernel's summation order is held to the
+plain version's here.
 
 The witness below is ``match/dense_flow.py::_lk_refine`` as it was
 before ``lk_step``: the structure tensor once per level, then per
@@ -124,3 +126,44 @@ def test_lk_step_plain_keeps_every_flow_on_a_flat_image_bit_for_bit(kind):
     flow = _flow(kind, 45, 63)
     out = lk_step.lk_step_plain(I0, I0 + 1.0, flow.clone(), 4, MIN_DET)
     assert torch.equal(_bits(out), _bits(flow))
+
+
+
+def _lk_step_in_kernel_order(I0, I1w, flow, radius, min_det):
+    """csrc/lk_step.cu's float operations in its order, one tensor op at a
+    time: each window sum starts at 0 and adds the window's products one
+    at a time, row by row, left to right."""
+    H, W = I0.shape
+    Ix, Iy = central_gradients(I0)
+    Ix, Iy, It = (F.pad(t, (radius,) * 4) for t in (Ix * 0.5, Iy * 0.5, I1w - I0))
+
+    def box(p):
+        acc = torch.zeros((H, W))
+        for i in range(2 * radius + 1):
+            for j in range(2 * radius + 1):
+                acc = acc + p[i:i + H, j:j + W]
+        return acc
+
+    a11, a12, a22, b1, b2 = (box(p) for p in (Ix * Ix, Ix * Iy, Iy * Iy, Ix * It, Iy * It))
+    det = a11 * a22 - a12 * a12
+    upd = torch.stack([(a22 * b1 - a12 * b2) / det, (a11 * b2 - a12 * b1) / det], -1)
+    return torch.where((det > min_det)[..., None], flow - upd, flow)
+
+
+@pytest.mark.parametrize("kind", ["smooth", "leaves", "nonfinite"])
+@pytest.mark.parametrize("radius", [4, 2, 8])
+@pytest.mark.parametrize("shape", [(96, 128), (45, 63)])
+def test_the_kernels_summation_order_is_the_plain_versions(rng, shape, radius, kind):
+    """The kernel equals the plain version on the CPU bit for bit (the card
+    tests and chip_smoke.py phase 3d hold it so) because the plain
+    version's box convolution sums each window in the kernel's order.
+    Here that order, one tensor op at a time, against the plain version:
+    bit for bit, NaN included."""
+    H, W = shape
+    img0, img1 = _images(rng, H, W)
+    I0, I1 = t32(img0), t32(img1)
+    flow = _flow(kind, H, W)
+    I1w = warp.warp_image(I1, flow)
+    want = lk_step.lk_step_plain(I0, I1w, flow.clone(), radius, MIN_DET)
+    got = _lk_step_in_kernel_order(I0, I1w, flow, radius, MIN_DET)
+    assert torch.equal(_bits(got), _bits(want)) and not torch.equal(_bits(got), _bits(flow))
